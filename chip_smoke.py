@@ -12,14 +12,28 @@ It needs one CUDA device and exits non-zero without one. Phases:
    events, after a warm-up);
 3. the main path at 256 MiB: ``BlockCodec(device=cuda).compress`` of
    ``bench.make_corpus(256 << 20)`` and ``decompress_device``; the
-   output must equal the input, and the native host decoder must
+   output must equal the input, and the port's host decoder must
    restore it from the same container;
 4. a 20 MiB slice (past the 16 MiB histogram cap): the CUDA container
    equals the CPU one (plain versions) byte for byte;
-5. every kernel ran in phase 3 (launch counts).
+5. every kernel of phase 3 ran there (launch counts);
+6. the chunked bit packers on the same 256 MiB as 64 chunks of 4 MiB:
+   K7 (RLE + pack), K5 on the RLE tokens (equal to K7 bit for bit), K6
+   (Huffman + pack) with the table of the corpus histogram, K5 on the
+   Huffman tokens (equal to K6), chunk 0 of K6 decoded back with the
+   port's host decoder; launch counts of that run, then each kernel
+   against its plain version (exact equality, both times).
 
-It prints a JSON line with the kernels' numbers and, last, one JSON line
-``{"ok": true, "device": {...}}``. Any failure raises and exits non-zero.
+Each kernel's line carries its bound: the bytes it must move (inputs
+read once, outputs written once, counted from this run's data) over the
+card's 3.35 TB/s, or its integer operations over 67 TOP/s (the float32
+rate outside the tensor cores; the larger of the two), and, where one
+PyTorch call computes the same function, that call's time.
+
+It prints a JSON line with the kernels' numbers, the card's name and
+power limit, and, last, one JSON line ``{"ok": true, "device": {...}}``.
+Any failure raises and exits non-zero. It imports nothing of JAX or of
+the JAX package, and fails if either is loaded.
 """
 
 from __future__ import annotations
@@ -30,6 +44,11 @@ import sys
 import time
 
 MIB = 1 << 20
+
+#: H100 SXM peaks (NVIDIA's data sheet): HBM bytes/s, and the
+#: float32 rate outside the tensor cores, taken for integer operations
+HBM_BYTES_PER_S = 3.35e12
+OPS_PER_S = 67e12
 
 
 def _sh(*cmd: str) -> str:
@@ -50,6 +69,42 @@ def time_ms(fn, reps: int) -> float:
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / reps
+
+
+def bound(nbytes: int, nops: int) -> dict:
+    """The least time the card could take: bytes over HBM bandwidth or
+    operations over the peak rate, whichever is larger."""
+    by_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    by_ops = nops / OPS_PER_S * 1e3
+    return {"bound_ms": max(by_bytes, by_ops),
+            "bound_by": "bytes" if by_bytes >= by_ops else "operations"}
+
+
+class Checker:
+    """Runs each kernel against its plain version on the same inputs
+    (exact equality), times both and its library call, and records the
+    results by kernel name."""
+
+    def __init__(self):
+        self.res = {}
+
+    def __call__(self, name, kernel, plain, *, nbytes, nops, library=None,
+                 reps=(20, 3)):
+        got, want = kernel(), plain()
+        got = got if isinstance(got, tuple) else (got,)
+        want = want if isinstance(want, tuple) else (want,)
+        err = max_abs_err(got, want)
+        r = {"max_abs_err": err, "ms": time_ms(kernel, reps[0]),
+             "plain_ms": time_ms(plain, reps[1]), **bound(nbytes, nops),
+             "library_ms": time_ms(library, reps[0]) if library else None}
+        self.res[name] = r
+        lib = "" if library is None else f" library {r['library_ms']:.3f} ms"
+        print(f"{name}: max_abs_err {err} kernel {r['ms']:.3f} ms plain "
+              f"{r['plain_ms']:.3f} ms bound {r['bound_ms']:.4f} ms "
+              f"({r['bound_by']}){lib}")
+        if err:
+            raise AssertionError(f"{name} differs from its plain version")
+        return got
 
 
 def max_abs_err(got, want) -> int:
@@ -74,13 +129,20 @@ def toolchain() -> str:
     card = _sh("nvidia-smi", "--query-gpu=name,power.limit",
                "--format=csv,noheader").splitlines()[0]
     print(card)
-    print(f"kernel build: {_build.build():.1f} s")
+    print(f"kernel build: {_build.build():.1f} s, host build: "
+          f"{_build.build_host():.1f} s")
     return card
 
 
-def kernels_vs_plain(corpus, dev) -> dict:
-    """Phase 2: each kernel against its plain version at main-path
-    shapes. Returns name -> {max_abs_err, ms, plain_ms}."""
+#: integer operations per element that each kernel's function needs at
+#: least (compare, scan step, shift, mask, place), for its bound; every
+#: bound here is set by bytes, which outweigh these by more than 10x
+OPS_PER_ELEM = 8
+
+
+def kernels_vs_plain(corpus, dev, check: Checker) -> None:
+    """Phase 2: each TBC2 kernel against its plain version at main-path
+    shapes (the first 16 MiB batch)."""
     import numpy as np
     import torch
 
@@ -94,44 +156,45 @@ def kernels_vs_plain(corpus, dev) -> dict:
     rows_np, lens_np = codec.split_segments(data)
     rows = torch.from_numpy(rows_np).to(dev)
     lens = torch.from_numpy(lens_np).to(dev)
-    res = {}
-
-    def check(name, kernel, plain, reps=(20, 3)):
-        got, want = kernel(), plain()
-        got = got if isinstance(got, tuple) else (got,)
-        want = want if isinstance(want, tuple) else (want,)
-        err = max_abs_err(got, want)
-        res[name] = {"max_abs_err": err, "ms": time_ms(kernel, reps[0]),
-                     "plain_ms": time_ms(plain, reps[1])}
-        print(f"{name}: max_abs_err {err} kernel {res[name]['ms']:.3f} ms "
-              f"plain {res[name]['plain_ms']:.3f} ms")
-        if err:
-            raise AssertionError(f"{name} differs from its plain version")
-        return got
+    nseg = rows.shape[0]
+    in_bytes = int(lens_np.sum())
 
     words, rle_lens = check(
         "rle_pack",
         lambda: segpack.rle_pack_segments(rows, lens),
         lambda: segpack.rle_pack_segments_plain(rows, lens),
+        nbytes=in_bytes + 4 * nseg + 4 * words_and_counts(nseg, 512),
+        nops=OPS_PER_ELEM * in_bytes,
     )
     rle_raw = rle_lens > lens
     sel = torch.where(rle_raw[:, None], segpack.be_words_from_bytes(rows),
                       words)
     counts = torch.where(rle_raw, lens, rle_lens)
     sub, subc = sel[::8].contiguous(), counts[::8].contiguous()
+    live = segpack.bytes_from_words(sub, segpack.SEG)[
+        torch.arange(segpack.SEG, device=dev)[None, :] < subc[:, None]
+    ].long()
+    sampled = int(subc.sum())
     (h,) = check(
         "histogram",
         lambda: hist.histogram_words(sub, subc),
         lambda: hist.histogram_words_plain(sub, subc),
+        nbytes=sampled + 4 * subc.numel() + 4 * 256,
+        nops=sampled,
+        library=lambda: torch.bincount(live, minlength=256),
     )
     table = codec._table_from_hist(h.cpu().numpy(), True)
     t = device_tables(table, dev)
     code, length = t["sym_code"], t["sym_len"]
+    stream = int(counts.sum())
     check(
         "huffman_pack",
         lambda: segpack.huffman_pack_segments(sel, counts, code, length),
         lambda: segpack.huffman_pack_segments_plain(sel, counts, code,
                                                     length),
+        nbytes=stream + 4 * nseg + 2 * 4 * 256
+        + 4 * words_and_counts(nseg, 512),
+        nops=OPS_PER_ELEM * stream,
     )
     out, bits, huff_raw = huff_stage(sel, counts, code, length)
     container = codec._assemble(
@@ -150,11 +213,19 @@ def kernels_vs_plain(corpus, dev) -> dict:
                                        orig_len=orig_len),
         lambda: hufdec.decode_segments_plain(*args, offset=offset,
                                              orig_len=orig_len),
+        # payloads + per-segment poff, pbytes, count, flag + tables in;
+        # the output bytes out
+        nbytes=int(pbytes.sum()) + 21 * nseg + 4 * 32 + 256 + orig_len,
+        nops=OPS_PER_ELEM * orig_len,
         reps=(10, 1),
     )
     if dec.cpu().numpy().tobytes() != data:
         raise AssertionError("K4 did not restore the 16 MiB batch")
-    return res
+
+
+def words_and_counts(rows: int, width: int) -> int:
+    """u32 elements of a ``[rows, width]`` word output and its counts."""
+    return rows * width + rows
 
 
 def main_path(corpus, dev) -> dict:
@@ -175,7 +246,7 @@ def main_path(corpus, dev) -> dict:
         raise AssertionError("device round trip differs from the input")
     t0 = time.perf_counter()
     if codec.decompress(container) != data:
-        raise AssertionError("native decode of the CUDA container differs")
+        raise AssertionError("host decode of the CUDA container differs")
     t_host = time.perf_counter() - t0
     gb = len(data) / 1e9
     print(f"main path {len(data) // MIB} MiB: ratio "
@@ -185,7 +256,7 @@ def main_path(corpus, dev) -> dict:
           f"{enc['assemble']:.3f} s")
     print(f"  decode parse {dec['parse']:.3f} s, device decode "
           f"{dec['decode']:.3f} s ({gb / dec['decode']:.3f} GB/s)")
-    print(f"  native host decode {t_host:.3f} s ({gb / t_host:.3f} GB/s)")
+    print(f"  host decode {t_host:.3f} s ({gb / t_host:.3f} GB/s)")
     return counts
 
 
@@ -201,6 +272,108 @@ def cross_device(corpus, dev) -> None:
     print(f"20 MiB: CUDA container == CPU container ({len(gpu)} bytes)")
 
 
+CHUNKS = 64  # phase 6: the corpus as 64 chunks of 4 MiB
+
+
+def stream_words(words, bits):
+    """Per chunk, the words that hold its stream (``ceil(bits / 32)``),
+    as a boolean mask over ``words``."""
+    import torch
+
+    nwords = (bits.long() + 31) // 32
+    return torch.arange(words.shape[1], device=words.device)[None, :] \
+        < nwords[:, None]
+
+
+def same_stream(a_words, a_bits, b_words, b_bits) -> bool:
+    """Two packers' outputs hold the same bit stream."""
+    width = min(a_words.shape[1], b_words.shape[1])
+    a_words, b_words = a_words[:, :width], b_words[:, :width]
+    live = stream_words(a_words, a_bits)
+    return (bool((a_bits == b_bits).all())
+            and bool((a_words[live] == b_words[live]).all()))
+
+
+def chunk_path(corpus, dev, check: Checker) -> dict:
+    """Phase 6: the chunked bit packers K5-K7 on the whole corpus as
+    ``CHUNKS`` chunks. Returns the launch counts of the path's run; then
+    compares each kernel with its plain version."""
+    import numpy as np
+    import torch
+
+    from tudocomp_tpu_torch.coders.huffman import HuffmanTable
+    from tudocomp_tpu_torch.ops import (
+        bitpack_chunks as bc, launch_counts, reset_launches,
+    )
+    from tudocomp_tpu_torch.ops.huffman import (
+        huffman_encode_tokens, masked_histogram,
+    )
+    from tudocomp_tpu_torch.ops.rle import rle_tokens
+
+    data = torch.from_numpy(corpus.reshape(CHUNKS, -1)).to(dev)
+    c, n = data.shape
+    lengths = torch.full((c,), n, dtype=torch.int32, device=dev)
+    reset_launches()
+    t0 = time.perf_counter()
+    rle_words, rle_bytes = bc.rle_pack_chunks(data, lengths)
+    values, lens = rle_tokens(data, lengths)
+    tok_words, tok_bits = bc.pack_tokens_chunks(values, lens)
+    hist = masked_histogram(data, data.numel())
+    table = HuffmanTable.from_counts(hist.cpu().numpy() + 1, max_len=16,
+                                     min_len=3)
+    code = torch.from_numpy(table.sym_code.astype(np.int32)).to(dev)
+    length = torch.from_numpy(table.sym_len.astype(np.int32)).to(dev)
+    huf_words, huf_bits = bc.pack_bytes_huffman_chunks(data, lengths, code,
+                                                       length)
+    hv, hl = huffman_encode_tokens(data, data.numel(), code, length)
+    hv, hl = hv.reshape(c, n), hl.reshape(c, n)
+    htok_words, htok_bits = bc.pack_tokens_chunks(hv, hl)
+    torch.cuda.synchronize()
+    t_path = time.perf_counter() - t0
+    counts = launch_counts()
+    print(f"chunk path {c} x {n // MIB} MiB: {t_path:.3f} s; RLE "
+          f"{int(rle_bytes.sum()) / data.numel():.4f}, Huffman "
+          f"{int(huf_bits.sum()) / 8 / data.numel():.4f} of the input")
+    if not same_stream(tok_words, tok_bits, rle_words, rle_bytes * 8):
+        raise AssertionError("K5 on the RLE tokens differs from K7")
+    if not same_stream(htok_words, htok_bits, huf_words, huf_bits):
+        raise AssertionError("K5 on the Huffman tokens differs from K6")
+    nbits = int(huf_bits[0])
+    payload = huf_words[0, : (nbits + 31) // 32].cpu().numpy().view(
+        np.uint32).astype(">u4").view(np.uint8)[: (nbits + 7) // 8]
+    if not np.array_equal(table.fast_decode(payload, n), corpus[:n]):
+        raise AssertionError("chunk 0 of K6 does not decode to its input")
+    print("K5 == K7 and K5 == K6 on every chunk; chunk 0 of K6 decodes")
+
+    def out_bytes(bits) -> int:  # stream words and counts written
+        return 4 * int(((bits.long() + 31) // 32).sum()) + 4 * c
+
+    positions = data.numel()
+    check(
+        "rle_pack_chunks",
+        lambda: bc.rle_pack_chunks(data, lengths),
+        lambda: bc.rle_pack_chunks_plain(data, lengths),
+        nbytes=positions + 4 * c + out_bytes(rle_bytes * 8),
+        nops=OPS_PER_ELEM * positions, reps=(10, 1),
+    )
+    check(
+        "pack_tokens_chunks",
+        lambda: bc.pack_tokens_chunks(values, lens),
+        lambda: bc.pack_tokens_chunks_plain(values, lens),
+        nbytes=8 * positions + out_bytes(tok_bits),
+        nops=OPS_PER_ELEM * positions, reps=(10, 1),
+    )
+    check(
+        "pack_bytes_huffman_chunks",
+        lambda: bc.pack_bytes_huffman_chunks(data, lengths, code, length),
+        lambda: bc.pack_bytes_huffman_chunks_plain(data, lengths, code,
+                                                   length),
+        nbytes=positions + 4 * c + 2 * 4 * 256 + out_bytes(huf_bits),
+        nops=OPS_PER_ELEM * positions, reps=(10, 1),
+    )
+    return counts
+
+
 SOURCES = {
     "rle_pack": ("tudocomp_tpu_torch/csrc/rle_pack.cu",
                  "tudocomp_tpu/ops/segpack_pallas.py:1032"),
@@ -210,7 +383,22 @@ SOURCES = {
                   "tudocomp_tpu/ops/hist_pallas.py:26"),
     "decode": ("tudocomp_tpu_torch/csrc/hufdec.cu",
                "tudocomp_tpu/ops/hufdec_pallas.py:74"),
+    "pack_tokens_chunks": ("tudocomp_tpu_torch/csrc/bitpack.cu",
+                           "tudocomp_tpu/ops/bitpack_pallas.py:187"),
+    "pack_bytes_huffman_chunks": ("tudocomp_tpu_torch/csrc/bitpack.cu",
+                                  "tudocomp_tpu/ops/bitpack_pallas.py:198"),
+    "rle_pack_chunks": ("tudocomp_tpu_torch/csrc/rle_chunk_pack.cu",
+                        "tudocomp_tpu/ops/bitpack_pallas.py:371"),
 }
+
+def require_launched(counts: dict, names) -> dict:
+    """The path's launch counts; raises if one of its kernels never ran."""
+    got = {k: counts[k] for k in names}
+    missing = [k for k, v in got.items() if v == 0]
+    if missing:
+        raise AssertionError(f"kernels not launched on their path: "
+                             f"{missing}")
+    return got
 
 
 def main() -> int:
@@ -225,22 +413,28 @@ def main() -> int:
     print("== phase 1: toolchain")
     card = toolchain()
     corpus = make_corpus(256 * MIB)
+    check = Checker()
     print("== phase 2: kernels vs plain versions")
-    res = kernels_vs_plain(corpus, dev)
+    kernels_vs_plain(corpus, dev, check)
     print("== phase 3: main path")
     counts = main_path(corpus, dev)
     print("== phase 4: CUDA vs CPU container")
     cross_device(corpus, dev)
-    print("== phase 5: launch counts", json.dumps(counts))
-    missing = [k for k, n in counts.items() if n == 0]
-    if missing:
-        raise AssertionError(f"kernels not launched on the main path: "
-                             f"{missing}")
-    if "jax" in sys.modules:
-        raise AssertionError("the port imported JAX")
+    from tudocomp_tpu_torch.ops import CHUNK_KERNELS, CODEC_KERNELS
+
+    launches = require_launched(counts, CODEC_KERNELS)
+    print("== phase 5: launch counts", json.dumps(launches))
+    print("== phase 6: chunked bit packers")
+    chunk_counts = chunk_path(corpus, dev, check)
+    chunk_launches = require_launched(chunk_counts, CHUNK_KERNELS)
+    print("   launch counts", json.dumps(chunk_launches))
+    launches.update(chunk_launches)
+    loaded = [m for m in ("jax", "tudocomp_tpu") if m in sys.modules]
+    if loaded:
+        raise AssertionError(f"the port imported {loaded}")
     print(json.dumps({"kernels": [
         {"name": name, "route": "cuda", "source": src, "replaces": rep,
-         "launches": counts[name], **res[name]}
+         "launches": launches[name], **check.res[name]}
         for name, (src, rep) in SOURCES.items()
     ]}))
     print(card)

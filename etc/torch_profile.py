@@ -1,0 +1,141 @@
+#!/usr/bin/env python3
+"""Where the time goes in the torch port, on one NVIDIA GPU.
+
+Run from the repo root: ``python3 etc/torch_profile.py``. It needs CUDA
+and exits non-zero without it. After one warm-up of each, it traces with
+``torch.profiler`` (CPU and CUDA activities):
+
+1. the TBC2 codec: ``BlockCodec(device="cuda").compress`` and
+   ``decompress_device`` of ``bench.make_corpus(256 << 20)``;
+2. the chunked bit packers on the same bytes as 64 chunks of 4 MiB, as
+   ``chip_smoke.py`` phase 6 runs them (K7, RLE tokens, K5, histogram,
+   K6, Huffman tokens, K5);
+3. K7, K5 (on the RLE tokens) and K6 alone, so that each one's passes
+   and its output's zero-fill show apart.
+
+For each it prints the host wall time, the device's busy time (the union
+of its kernel, copy and memset intervals), the idle share, and the
+device time by kernel name. Imports nothing of JAX or the JAX package.
+"""
+
+from __future__ import annotations
+
+import subprocess
+import sys
+import time
+
+MIB = 1 << 20
+CHUNKS = 64
+
+
+def _device_events(prof):
+    """(name, start, end) in us of every device-side event of a trace:
+    kernels, copies and memsets."""
+    from torch.autograd import DeviceType
+
+    return [(e.name, e.time_range.start, e.time_range.end)
+            for e in prof.events() if e.device_type == DeviceType.CUDA]
+
+
+def _busy_us(events) -> float:
+    """Length of the union of the events' intervals."""
+    busy, end = 0.0, float("-inf")
+    for _, s, e in sorted(events, key=lambda x: x[1]):
+        if s > end:
+            busy += e - s
+            end = e
+        elif e > end:
+            busy += e - end
+            end = e
+    return busy
+
+
+def traced(name: str, fn, top: int = 14) -> None:
+    """Run ``fn`` once untraced, then once under the profiler; print the
+    wall time, device busy time, idle share and top device items."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    events = _device_events(prof)
+    busy = _busy_us(events) / 1e3
+    print(f"== {name}: wall {wall * 1e3:.3f} ms, device busy {busy:.3f} ms,"
+          f" idle share {1 - busy / (wall * 1e3):.4f}")
+    by_name: dict[str, list] = {}
+    for key, s, e in events:
+        row = by_name.setdefault(key, [0, 0.0])
+        row[0] += 1
+        row[1] += (e - s) / 1e3
+    for key, (count, ms) in sorted(by_name.items(),
+                                   key=lambda r: -r[1][1])[:top]:
+        print(f"  {ms:10.3f} ms  {count:5d}x  {key[:100]}")
+
+
+def main() -> int:
+    import numpy as np
+    import torch
+
+    if not torch.cuda.is_available():
+        print("torch_profile: CUDA is not available", file=sys.stderr)
+        return 1
+    sys.path.insert(0, ".")
+    from bench import make_corpus
+    from tudocomp_tpu_torch import BlockCodec, _build
+    from tudocomp_tpu_torch.coders.huffman import HuffmanTable
+    from tudocomp_tpu_torch.ops import bitpack_chunks as bc
+    from tudocomp_tpu_torch.ops.huffman import (
+        huffman_encode_tokens, masked_histogram,
+    )
+    from tudocomp_tpu_torch.ops.rle import rle_tokens
+
+    print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                          "--format=csv,noheader"], capture_output=True,
+                         text=True).stdout.strip())
+    _build.build()
+    _build.build_host()
+    corpus = make_corpus(256 * MIB)
+    data_bytes = corpus.tobytes()
+    codec = BlockCodec(device="cuda")
+    container = codec.compress(data_bytes)
+    traced("codec compress 256 MiB", lambda: codec.compress(data_bytes))
+    traced("codec decompress_device 256 MiB",
+           lambda: codec.decompress_device(container))
+
+    dev = torch.device("cuda")
+    data = torch.from_numpy(corpus.reshape(CHUNKS, -1)).to(dev)
+    c, n = data.shape
+    lengths = torch.full((c,), n, dtype=torch.int32, device=dev)
+    hist = masked_histogram(data, data.numel())
+    table = HuffmanTable.from_counts(hist.cpu().numpy() + 1, max_len=16,
+                                     min_len=3)
+    code = torch.from_numpy(table.sym_code.astype(np.int32)).to(dev)
+    length = torch.from_numpy(table.sym_len.astype(np.int32)).to(dev)
+
+    def chunk_path():
+        bc.rle_pack_chunks(data, lengths)
+        bc.pack_tokens_chunks(*rle_tokens(data, lengths))
+        masked_histogram(data, data.numel())
+        bc.pack_bytes_huffman_chunks(data, lengths, code, length)
+        hv, hl = huffman_encode_tokens(data, data.numel(), code, length)
+        bc.pack_tokens_chunks(hv.reshape(c, n), hl.reshape(c, n))
+
+    traced(f"chunk path {c} x {n // MIB} MiB", chunk_path, top=30)
+    values, lens = rle_tokens(data, lengths)
+    traced("K7 rle_pack_chunks alone", lambda: bc.rle_pack_chunks(data,
+                                                                  lengths))
+    traced("K5 pack_tokens_chunks alone (RLE tokens)",
+           lambda: bc.pack_tokens_chunks(values, lens))
+    traced("K6 pack_bytes_huffman_chunks alone",
+           lambda: bc.pack_bytes_huffman_chunks(data, lengths, code, length))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

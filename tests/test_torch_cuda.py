@@ -1,18 +1,24 @@
 """The port's CUDA kernels against their plain torch versions, on the card.
 
-Every case here needs an NVIDIA GPU and skips without one. The repo's
-``tests/conftest.py`` imports JAX, which the GPU machine lacks, so run
-this file there with ``python -m pytest --noconftest -q
-tests/test_torch_cuda.py``. All comparisons are exact (integer data).
+Every case here needs an NVIDIA GPU and skips without one. The file
+imports nothing of JAX or the JAX package, but the repo's
+``tests/conftest.py`` imports JAX, so run it on the card with
+``python -m pytest --noconftest -q tests/test_torch_cuda.py``. All
+comparisons are exact (integer data).
 """
 
 import numpy as np
 import pytest
 import torch
 
-from tudocomp_tpu.coders.huffman import HuffmanTable
 from tudocomp_tpu_torch import BlockCodec, device_tables
-from tudocomp_tpu_torch.ops import launch_counts, reset_launches
+from tudocomp_tpu_torch.coders.huffman import HuffmanTable
+from tudocomp_tpu_torch.ops import CODEC_KERNELS, launch_counts, reset_launches
+from tudocomp_tpu_torch.ops.bitpack_chunks import (
+    pack_bytes_huffman_chunks, pack_bytes_huffman_chunks_plain,
+    pack_tokens_chunks, pack_tokens_chunks_plain, rle_pack_chunks,
+    rle_pack_chunks_plain,
+)
 from tudocomp_tpu_torch.ops.hist import (
     histogram_words, histogram_words_plain,
 )
@@ -128,7 +134,7 @@ def test_codec_cuda_matches_cpu(cuda):
     assert container == BlockCodec(device="cpu").compress(data)
     assert gpu.decompress_device(container) == data
     assert gpu.decompress(container) == data
-    assert all(n > 0 for n in launch_counts().values()), launch_counts()
+    assert all(launch_counts()[k] > 0 for k in CODEC_KERNELS), launch_counts()
 
 
 def test_codec_cuda_empty_and_tiny(cuda):
@@ -137,3 +143,79 @@ def test_codec_cuda_empty_and_tiny(cuda):
         container = gpu.compress(data)
         assert container == BlockCodec(device="cpu").compress(data)
         assert gpu.decompress_device(container) == data
+
+
+def _chunks(seed: int, c: int = 4, n: int = 16384):
+    """Chunk rows: runs past RUN_CAP that cross kernel tiles, short runs,
+    random bytes and a constant row; lengths full, short (garbage past
+    them), 0 and 1."""
+    rng = np.random.default_rng(seed)
+    data = rng.integers(0, 256, (c, n), dtype=np.uint8)
+    data[0, 1000:1000 + 9000] = 7             # a run past 8192
+    data[0, 12000:] = 8
+    data[1] = np.repeat(rng.integers(0, 3, n, dtype=np.uint8),
+                        rng.integers(1, 50, n))[:n]
+    data[3] = 5
+    lengths = np.array([n, n - 3001, 0, 1], np.int32)[:c]
+    return data, lengths
+
+
+def _equal(got, want):
+    for g, w in zip(got, want):
+        assert torch.equal(g, w)
+
+
+@pytest.mark.parametrize("offset", [0, 1, 125])
+def test_rle_pack_chunks_matches_plain(cuda, offset):
+    data, lengths = _to(cuda, *_chunks(offset))
+    _equal(rle_pack_chunks(data, lengths, offset=offset),
+           rle_pack_chunks_plain(data, lengths, offset=offset))
+
+
+@pytest.mark.parametrize("tile", [128, 2048])
+def test_pack_tokens_chunks_matches_plain(cuda, tile):
+    rng = np.random.default_rng(tile)
+    c, n = 3, 3 * tile
+    values = rng.integers(0, 2**32, (c, n), dtype=np.uint64).astype(np.uint32)
+    lens = rng.integers(0, 33, (c, n)).astype(np.int32)
+    lens[0, : n // 2] = 0
+    lens[1] = 32
+    lens[2, :5] = (40, -1, 33, 0, 31)  # clamped to 32 by both
+    v, ln = _to(cuda, values.view(np.int32), lens)
+    _equal(pack_tokens_chunks(v, ln, tile=tile),
+           pack_tokens_chunks_plain(v, ln, tile=tile))
+
+
+@pytest.mark.parametrize("identity", [False, True])
+def test_pack_bytes_huffman_chunks_matches_plain(cuda, identity):
+    data, lengths = _chunks(9)
+    hist = np.bincount(data.reshape(-1), minlength=256) + 1
+    table = None if identity else HuffmanTable.from_counts(
+        hist, max_len=16, min_len=3)
+    t = device_tables(table, cuda)
+    d, ln = _to(cuda, data, lengths)
+    _equal(pack_bytes_huffman_chunks(d, ln, t["sym_code"], t["sym_len"]),
+           pack_bytes_huffman_chunks_plain(d, ln, t["sym_code"],
+                                           t["sym_len"]))
+
+
+def test_pack_bytes_huffman_chunks_rejects_17_bit_codes(cuda):
+    data, lengths = _to(cuda, *_chunks(9))
+    t = device_tables(None, cuda)
+    sym_len = t["sym_len"].clone()
+    sym_len[3] = 17
+    before = pack_bytes_huffman_chunks.launches
+    with pytest.raises(ValueError, match="sym_len"):
+        pack_bytes_huffman_chunks(data, lengths, t["sym_code"], sym_len)
+    assert pack_bytes_huffman_chunks.launches == before
+
+
+def test_pack_tokens_chunks_equals_rle_pack_chunks(cuda):
+    from tudocomp_tpu_torch.ops.rle import rle_tokens
+
+    data, lengths = _to(cuda, *_chunks(4))
+    words, nbytes = rle_pack_chunks(data, lengths, offset=3)
+    tw, bits = pack_tokens_chunks(*rle_tokens(data, lengths, 3))
+    assert torch.equal(bits, 8 * nbytes)
+    width = min(words.shape[1], tw.shape[1])
+    assert torch.equal(words[:, :width], tw[:, :width])

@@ -196,8 +196,14 @@ def test_codec_rejects_missing_cuda():
         pytest.skip("CUDA is available here")
     with pytest.raises(RuntimeError):
         BlockCodec(device="cuda")
-    with pytest.raises(TypeError):
-        BlockCodec()  # the device is never picked implicitly
+    with pytest.raises(RuntimeError):
+        BlockCodec()  # the default device is CUDA; the CPU is never picked
+
+
+def test_codec_defaults_to_cuda(monkeypatch):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
+    assert BlockCodec().device == torch.device("cuda")
+    assert BlockCodec(device="cpu").device == torch.device("cpu")
 
 
 def test_cpu_path_launches_no_kernel():
@@ -232,8 +238,6 @@ def test_failed_build_raises_without_fallback(monkeypatch, tmp_path):
     monkeypatch.setattr(_build, "_lib", None)
     monkeypatch.setattr(_build, "_BUILD_DIR", str(tmp_path))
     monkeypatch.setattr(_build, "_SO", str(tmp_path / "lib.so"))
-    monkeypatch.setattr(_build, "_STAMP", str(tmp_path / "lib.so.srchash"))
-    monkeypatch.setattr(_build, "_LOG", str(tmp_path / "nvcc.log"))
     monkeypatch.setattr(_build, "_nvcc", lambda: "false")  # exits 1
     monkeypatch.setattr(_build, "on_cuda", lambda *t: True)
     reset_launches()

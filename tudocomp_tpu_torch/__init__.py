@@ -1,31 +1,10 @@
-"""tudocomp-tpu on PyTorch and CUDA: the TBC2 segment codec with
-hand-written Hopper kernels (``csrc/``), byte-compatible with the JAX
-package ``tudocomp_tpu``. Imports torch and numpy, never JAX."""
+"""tudocomp-tpu on PyTorch and CUDA: the TBC2 segment codec and the
+chunked bit packers, with hand-written Hopper kernels (``csrc/``),
+byte-compatible with the JAX package ``tudocomp_tpu``. Imports torch and
+numpy, never JAX and nothing of the JAX package: the host code it needs
+(bit I/O, the Huffman table, vbyte, the TBC2 host decoder) has its own
+copy here."""
 
-import os
-import sys
-
-
-def _import_host_package() -> None:
-    """Import ``tudocomp_tpu``, whose JAX-free host modules (Huffman
-    table, bit I/O, vbyte, native runtime) the port reuses, without its
-    ``__init__``'s JAX compile-cache setup: that step imports JAX when
-    JAX is installed, and ``TDC_NO_COMPILE_CACHE`` turns it off."""
-    if "tudocomp_tpu" in sys.modules:
-        return
-    prev = os.environ.get("TDC_NO_COMPILE_CACHE")
-    os.environ["TDC_NO_COMPILE_CACHE"] = "1"
-    try:
-        import tudocomp_tpu  # noqa: F401
-    finally:
-        if prev is None:
-            del os.environ["TDC_NO_COMPILE_CACHE"]
-        else:
-            os.environ["TDC_NO_COMPILE_CACHE"] = prev
-
-
-_import_host_package()
-
-from tudocomp_tpu_torch.models import BlockCodec, device_tables  # noqa: E402
+from tudocomp_tpu_torch.models import BlockCodec, device_tables
 
 __all__ = ["BlockCodec", "device_tables"]

@@ -1,11 +1,15 @@
-"""Build and bind the port's CUDA kernels (``csrc/*.cu``).
+"""Build and bind the port's native code.
 
-All kernels compile with ``nvcc`` into one shared library with a plain C
-interface, loaded with ``ctypes``. The build happens at first use, from
-the package's own sources, into ``csrc/build/`` (git-ignored), and is
-keyed by a hash of the sources and flags so a stale library is never
-loaded. Unlike ``tudocomp_tpu.native`` a failed build raises: there is
-no fallback path for a CUDA tensor.
+Two shared libraries with a plain C interface, loaded with ``ctypes``:
+
+- the CUDA kernels (``csrc/*.cu``), compiled by ``nvcc`` for ``sm_90a``;
+- the host TBC2 parser and decoder (``csrc/host/*.cpp``), compiled by
+  the host C++ compiler.
+
+Each is built at first use, from the package's own sources, into
+``csrc/build/`` (git-ignored), and is keyed by a hash of its sources and
+flags so a stale library is never loaded. A failed build raises: there
+is no fallback path.
 """
 
 from __future__ import annotations
@@ -22,20 +26,21 @@ import time
 _CSRC = os.path.join(os.path.dirname(os.path.abspath(__file__)), "csrc")
 _BUILD_DIR = os.path.join(_CSRC, "build")
 _SO = os.path.join(_BUILD_DIR, "libtdc_kernels.so")
-_STAMP = _SO + ".srchash"
-_LOG = os.path.join(_BUILD_DIR, "nvcc.log")
+_HOST_SO = os.path.join(_BUILD_DIR, "libtdc_host.so")
 
+#: compile flags (each source is compiled with -c, then linked -shared)
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
-    "-std=c++17", "-O3", "-Xptxas", "-v",
-    "-shared", "-Xcompiler", "-fPIC",
+    "-std=c++17", "-O3", "-Xptxas", "-v", "-Xcompiler", "-fPIC",
 )
+HOST_FLAGS = ("-std=c++17", "-O3", "-fPIC")
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
+_L = ctypes.c_int64
 
-#: C entry points: name -> argtypes (pointers and the stream as void*,
-#: ints as int). Each returns cudaGetLastError() after its launch.
+#: CUDA entry points: name -> argtypes (pointers and the stream as
+#: void*, ints as int). Each returns cudaGetLastError() after its launch.
 _SIGNATURES = {
     # rows, lens, words_out, rle_lens_out, nc, offset, stream
     "tdc_rle_pack": [_P, _P, _P, _P, _I, _I, _P],
@@ -45,12 +50,33 @@ _SIGNATURES = {
     "tdc_hist": [_P, _P, _P, _I, _P],
     # flat, poff, pbytes, counts, flags, thresh, offs, symbols, out,
     # nseg, flat_len, orig_len, offset, stream
-    "tdc_hufdec": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _I, ctypes.c_int64,
-                   ctypes.c_int64, _I, _P],
+    "tdc_hufdec": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _L, _L, _I, _P],
+    # values, lens, words_out, bits_out, scratch, chunks, n, cap, stream
+    "tdc_pack_tokens_chunks": [_P, _P, _P, _P, _P, _I, _I, _I, _P],
+    # data, lengths, sym_code, sym_len, words_out, bits_out, scratch,
+    # chunks, n, cap, stream
+    "tdc_pack_huffman_chunks": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _P],
+    # data, lengths, words_out, bytes_out, scratch, chunks, n, cap,
+    # offset, stream
+    "tdc_rle_pack_chunks": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _P],
+}
+
+#: host entry points (``csrc/host/tbc2.cpp``): name -> argtypes; each
+#: returns int64
+_HOST_SIGNATURES = {
+    # payload, payload_len, count, lut_sym, lut_len, k, out
+    "tdc_huffman_decode": [_P, _L, _L, _P, _P, _I, _P],
+    # data, n, pos, nseg, counts, flags, poff, pbytes
+    "tdc_tbc2_parse": [_P, _L, _L, _L, _P, _P, _P, _P],
+    # data, counts, flags, poff, pbytes, lo, hi, lut_sym, lut_len, k,
+    # seg, orig_len, offset, out
+    "tdc_tbc2_decode": [_P, _P, _P, _P, _P, _L, _L, _P, _P, _I, _L, _L,
+                        _L, _P],
 }
 
 _lock = threading.Lock()
 _lib = None
+_host_lib = None
 
 
 def _sources() -> list[str]:
@@ -60,13 +86,8 @@ def _sources() -> list[str]:
     )
 
 
-def _src_hash() -> str:
-    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for path in _sources():
-        h.update(os.path.basename(path).encode())
-        with open(path, "rb") as f:
-            h.update(f.read())
-    return h.hexdigest()
+def _host_sources() -> list[str]:
+    return sorted(glob.glob(os.path.join(_CSRC, "host", "*.cpp")))
 
 
 def _nvcc() -> str:
@@ -80,35 +101,93 @@ def _nvcc() -> str:
     raise RuntimeError("nvcc not found: the CUDA kernels cannot be built")
 
 
-def build() -> float:
-    """Compile the kernel library if its sources changed; return the
-    seconds spent compiling (0.0 when the stamped library is current).
-    Raises ``RuntimeError`` with the compiler's output on failure."""
-    want = _src_hash()
-    if os.path.exists(_SO) and os.path.exists(_STAMP):
-        with open(_STAMP) as f:
+def _cxx() -> str:
+    found = shutil.which(os.environ.get("CXX", "g++"))
+    if not found:
+        raise RuntimeError("no host C++ compiler: set CXX or install g++")
+    return found
+
+
+def _compile(name: str, compiler: str, flags, sources: list[str],
+             so: str) -> float:
+    """Compile ``sources`` into ``so`` unless the stamped library is
+    current; return the seconds spent compiling. Each source compiles in
+    its own process, all started together, then one link. Raises
+    ``RuntimeError`` with the compiler's output on failure."""
+    h = hashlib.sha256(" ".join(flags).encode())
+    for path in sources:
+        h.update(os.path.basename(path).encode())
+        with open(path, "rb") as f:
+            h.update(f.read())
+    want = h.hexdigest()
+    stamp = so + ".srchash"
+    if os.path.exists(so) and os.path.exists(stamp):
+        with open(stamp) as f:
             if f.read().strip() == want:
                 return 0.0
-    os.makedirs(_BUILD_DIR, exist_ok=True)
+    os.makedirs(os.path.dirname(so), exist_ok=True)
     t0 = time.perf_counter()
-    tmp = f"{_SO}.{os.getpid()}.tmp"
-    srcs = [p for p in _sources() if p.endswith(".cu")]
-    proc = subprocess.run(
-        [_nvcc(), *NVCC_FLAGS, "-o", tmp, *srcs],
-        capture_output=True, text=True,
-    )
-    with open(_LOG, "w") as f:
-        f.write(proc.stdout + proc.stderr)
-    if proc.returncode != 0:
-        if os.path.exists(tmp):
-            os.remove(tmp)
-        raise RuntimeError(
-            f"nvcc failed ({proc.returncode}):\n{proc.stderr[-4000:]}"
+    tag = f"{so}.{os.getpid()}"
+    objs = [f"{tag}.{i}.o" for i in range(len(sources))]
+    logs = [f"{obj}.log" for obj in objs]
+    procs = []
+    for src, obj, log in zip(sources, objs, logs):
+        with open(log, "w") as out:
+            procs.append(subprocess.Popen(
+                [compiler, *flags, "-c", "-o", obj, src],
+                stdout=out, stderr=subprocess.STDOUT,
+            ))
+    rcs = [p.wait() for p in procs]
+    link = None
+    if not any(rcs):
+        link = subprocess.run(
+            [compiler, *flags, "-shared", "-o", f"{tag}.tmp", *objs],
+            capture_output=True, text=True,
         )
-    os.replace(tmp, _SO)
-    with open(_STAMP, "w") as f:
+        rcs.append(link.returncode)
+    text = ""
+    for log in logs:
+        with open(log) as f:
+            text += f.read()
+    if link is not None:
+        text += link.stdout + link.stderr
+    with open(so + ".log", "w") as f:
+        f.write(text)
+    for path in objs + logs:
+        if os.path.exists(path):
+            os.remove(path)
+    if any(rcs):
+        if os.path.exists(f"{tag}.tmp"):
+            os.remove(f"{tag}.tmp")
+        rc = next(r for r in rcs if r)
+        raise RuntimeError(f"{name} failed ({rc}):\n{text[-4000:]}")
+    # the rename is atomic: a concurrent loader sees the old library or
+    # the whole new one, never a partly written file
+    os.replace(f"{tag}.tmp", so)
+    with open(stamp, "w") as f:
         f.write(want)
     return time.perf_counter() - t0
+
+
+def build() -> float:
+    """Compile the CUDA kernel library if its sources changed; return the
+    seconds spent compiling (0.0 when the stamped library is current)."""
+    srcs = [p for p in _sources() if p.endswith(".cu")]
+    return _compile("nvcc", _nvcc(), NVCC_FLAGS, srcs, _SO)
+
+
+def build_host() -> float:
+    """Compile the host library (``csrc/host``) if its sources changed."""
+    return _compile("g++", _cxx(), HOST_FLAGS, _host_sources(), _HOST_SO)
+
+
+def _bind(so: str, signatures: dict, restype) -> ctypes.CDLL:
+    lib = ctypes.CDLL(so)
+    for name, argtypes in signatures.items():
+        fn = getattr(lib, name)
+        fn.argtypes = argtypes
+        fn.restype = restype
+    return lib
 
 
 def lib() -> ctypes.CDLL:
@@ -117,13 +196,18 @@ def lib() -> ctypes.CDLL:
     with _lock:
         if _lib is None:
             build()
-            so = ctypes.CDLL(_SO)
-            for name, argtypes in _SIGNATURES.items():
-                fn = getattr(so, name)
-                fn.argtypes = argtypes
-                fn.restype = ctypes.c_int
-            _lib = so
+            _lib = _bind(_SO, _SIGNATURES, ctypes.c_int)
         return _lib
+
+
+def host_lib() -> ctypes.CDLL:
+    """The loaded host library (built on first use)."""
+    global _host_lib
+    with _lock:
+        if _host_lib is None:
+            build_host()
+            _host_lib = _bind(_HOST_SO, _HOST_SIGNATURES, ctypes.c_int64)
+        return _host_lib
 
 
 def on_cuda(*tensors) -> bool:

@@ -1,5 +1,6 @@
-// Shared helpers of the port's kernels: the segment geometry and a
-// block-wide exclusive scan built from warp shuffles.
+// Shared helpers of the port's kernels: the segment geometry, a
+// block-wide exclusive scan built from warp shuffles, and the per-chunk
+// scan of tile values that the chunked packers run between passes.
 #pragma once
 
 #include <cuda_runtime.h>
@@ -52,5 +53,30 @@ __device__ int block_exclusive_scan(int v, int identity, Op op, int* total) {
   __syncthreads();  // warp_incl is reused by the next call
   return excl;
 }
+
+namespace {
+
+// The chunked kernels' middle pass: one block per chunk replaces that
+// chunk's T per-tile values (vals[c * T .. c * T + T)) by their
+// exclusive scan under op, and writes the chunk's total to totals[c]
+// when totals is not null. Launch with 1024 threads.
+template <typename Op>
+__global__ void __launch_bounds__(1024)
+scan_tiles_kernel(int32_t* vals, int32_t* totals, int T, int identity,
+                  Op op) {
+  int32_t* v = vals + (size_t)blockIdx.x * T;
+  int carry = identity;
+  for (int base = 0; base < T; base += blockDim.x) {
+    const int i = base + threadIdx.x;
+    const int x = i < T ? v[i] : identity;
+    int round_total;
+    const int excl = block_exclusive_scan(x, identity, op, &round_total);
+    if (i < T) v[i] = op(carry, excl);
+    carry = op(carry, round_total);
+  }
+  if (totals && threadIdx.x == 0) totals[blockIdx.x] = carry;
+}
+
+}  // namespace
 
 }  // namespace tdc

@@ -1,0 +1,255 @@
+"""Host (numpy) bit-stream wire format: the writer, the reader and the
+token packer.
+
+Copy of the parts of ``tudocomp_tpu/io/bitio.py`` that the port calls
+(the TBC2 header and the Huffman table serialisation); semantics follow
+that package's ``io/spec.md``. The writer is token-buffered: every write
+appends ``(value, len)`` tokens (len <= 32) and the byte stream is
+produced in one vectorised pass at :meth:`BitWriter.getvalue`.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+
+_U64_1 = np.uint64(1)
+
+
+def split_tokens(values: np.ndarray, lens: np.ndarray):
+    """Split tokens wider than 32 bits into (MSB-part, LSB-part) pairs.
+
+    ``values`` uint64, ``lens`` integer array with lens <= 64. Returns
+    (values uint32, lens uint8) with all lens <= 32, preserving bit order.
+    """
+    values = np.asarray(values)
+    lens = np.asarray(lens)
+    if lens.size == 0:
+        return np.zeros(0, np.uint32), np.zeros(0, np.uint8)
+    if int(lens.max(initial=0)) <= 32:
+        return values.astype(np.uint32), lens.astype(np.uint8)
+    values = values.astype(np.uint64)
+    lens = lens.astype(np.int64)
+    wide = lens > 32
+    n_out = lens.size + int(wide.sum())
+    out_v = np.empty(n_out, np.uint64)
+    out_l = np.empty(n_out, np.int64)
+    # destination index of each token's *first* part
+    dst = np.arange(lens.size) + np.cumsum(wide) - wide
+    out_v[dst] = np.where(wide, values >> np.uint64(32), values)
+    out_l[dst] = np.where(wide, lens - 32, lens)
+    out_v[dst[wide] + 1] = values[wide] & np.uint64(0xFFFFFFFF)
+    out_l[dst[wide] + 1] = 32
+    return out_v.astype(np.uint32), out_l.astype(np.uint8)
+
+
+def pack_tokens(values: np.ndarray, lens: np.ndarray):
+    """Pack tokens (len <= 32 each) into a payload byte array.
+
+    Returns ``(payload: uint8[ceil(T/8)], total_bits: int)`` without the
+    finalization byte — apply :func:`finalize_stream` for a finished stream.
+    """
+    if np.asarray(values).size == 0:
+        return np.zeros(0, np.uint8), 0
+    values = np.asarray(values, dtype=np.uint64)
+    lens64 = np.asarray(lens, dtype=np.int64)
+    ends = np.cumsum(lens64)
+    total = int(ends[-1])
+    offs = ends - lens64
+    # mask to len bits
+    v = values & ((_U64_1 << lens64.astype(np.uint64)) - _U64_1)
+    n_words = (total + 31) // 32 + 1
+    words = np.zeros(n_words, np.uint32)
+    bitpos = offs & 31
+    sh = 32 - bitpos - lens64  # in [-31, 31]
+    w0 = (offs >> 5).astype(np.int64)
+    pos_sh = sh >= 0
+    part1 = np.where(
+        pos_sh,
+        v << np.where(pos_sh, sh, 0).astype(np.uint64),
+        v >> np.where(pos_sh, 0, -sh).astype(np.uint64),
+    ).astype(np.uint32)
+    np.bitwise_or.at(words, w0, part1)
+    strad = ~pos_sh
+    if strad.any():
+        neg = (-sh[strad]).astype(np.uint64)  # 1..31 low bits spill over
+        spill = (v[strad] & ((_U64_1 << neg) - _U64_1)) << (np.uint64(32) - neg)
+        np.bitwise_or.at(words, w0[strad] + 1, spill.astype(np.uint32))
+    payload = words.astype(">u4").view(np.uint8)[: (total + 7) // 8]
+    return payload, total
+
+
+def finalize_stream(payload: np.ndarray, total_bits: int) -> bytes:
+    """Apply the final-byte convention (spec.md "Finalization")."""
+    payload = np.asarray(payload, dtype=np.uint8)
+    k = total_bits % 8
+    if k == 0:
+        return payload.tobytes() + b"\x00"
+    if k <= 5:
+        out = payload.copy()
+        out[-1] |= np.uint8(k)
+        return out.tobytes()
+    return payload.tobytes() + bytes([k])
+
+
+def parse_stream(data: bytes):
+    """Inverse of finalization: returns ``(payload: uint8[], total_bits)``."""
+    buf = np.frombuffer(data, dtype=np.uint8)
+    n = buf.size
+    if n == 0:
+        return buf, 0
+    f = int(buf[-1]) & 7
+    if f >= 6:
+        total = 8 * (n - 2) + f
+        payload = buf[:-1]
+    else:
+        total = 8 * (n - 1) + f
+        payload = buf if f else buf[:-1]
+    return payload, max(total, 0)
+
+
+class BitWriter:
+    """Token-buffered bit writer producing the finished wire format."""
+
+    def __init__(self):
+        self._chunks = []  # list of (values uint32 array, lens uint8 array)
+        self._sv = []  # scalar staging: values
+        self._sl = []  # scalar staging: lens
+
+    def write_bit(self, bit) -> None:
+        self._sv.append(1 if bit else 0)
+        self._sl.append(1)
+
+    def write_int(self, v: int, bits: int = 64) -> None:
+        v = int(v)
+        while bits > 32:
+            # emit the MSB part first; keep the final chunk exactly 32 bits
+            take = bits - 32 if bits <= 64 else 32
+            self._sv.append((v >> (bits - take)) & ((1 << take) - 1))
+            self._sl.append(take)
+            bits -= take
+        self._sv.append(v & ((1 << bits) - 1))
+        self._sl.append(bits)
+
+    def write_compressed_int(self, v: int, b: int = 7) -> None:
+        v = int(v)
+        while True:
+            block = v & ((1 << b) - 1)
+            v >>= b
+            self.write_bit(v > 0)
+            self.write_int(block, b)
+            if not v:
+                break
+
+    def write_tokens(self, values, lens) -> None:
+        """Append token arrays; tokens wider than 32 bits are split."""
+        v, l = split_tokens(values, lens)
+        if v.size:
+            self._flush_scalars()
+            self._chunks.append((v, l))
+
+    def write_int_array(self, values, bits: int) -> None:
+        """Fixed-width batch write: each value in ``bits`` bits."""
+        values = np.asarray(values, dtype=np.uint64)
+        self.write_tokens(values, np.full(values.shape, bits, np.int32))
+
+    def _flush_scalars(self):
+        if self._sv:
+            v, l = split_tokens(
+                np.array(self._sv, np.uint64), np.array(self._sl, np.int64)
+            )
+            self._chunks.append((v, l))
+            self._sv, self._sl = [], []
+
+    def tokens(self):
+        """All buffered tokens as (values uint32, lens uint8)."""
+        self._flush_scalars()
+        if not self._chunks:
+            return np.zeros(0, np.uint32), np.zeros(0, np.uint8)
+        return (
+            np.concatenate([c[0] for c in self._chunks]),
+            np.concatenate([c[1] for c in self._chunks]),
+        )
+
+    def getvalue(self) -> bytes:
+        """The finished (finalized) byte stream."""
+        payload, total = pack_tokens(*self.tokens())
+        return finalize_stream(payload, total)
+
+
+class BitReader:
+    """Bit reader over a finished stream (specification decoder)."""
+
+    def __init__(self, data: bytes):
+        payload, total = parse_stream(data)
+        self.total = total
+        nbits = payload.size * 8
+        if nbits < total:  # defensive; malformed stream
+            payload = np.concatenate(
+                [payload, np.zeros((total - nbits + 7) // 8, np.uint8)]
+            )
+        self._bits = np.unpackbits(payload)[:total] if total else np.zeros(
+            0, np.uint8
+        )
+        self._wl = None  # packed words as Python ints (lazy, scalar reads)
+        self.pos = 0
+
+    def read_bit(self) -> int:
+        if self.pos >= self.total:
+            return 0
+        b = int(self._bits[self.pos])
+        self.pos += 1
+        return b
+
+    def read_int(self, amount: int) -> int:
+        # bits past EOF read as 0 (reference behavior): the packed-word
+        # cache is built from the truncated bit array, so the out-of-
+        # range tail is zero automatically
+        if amount > 57:
+            hi = self.read_int(amount - 32)
+            return (hi << 32) | self.read_int(32)
+        wl = self._wl
+        if wl is None:
+            wl = self._packed_words().tolist()
+            self._wl = wl
+        o = self.pos
+        sh = o & 63
+        w = (wl[o >> 6] << sh) & 0xFFFFFFFFFFFFFFFF
+        if sh:
+            w |= wl[(o >> 6) + 1] >> (64 - sh)
+        o += amount
+        self.pos = o if o < self.total else self.total
+        return w >> (64 - amount) if amount else 0
+
+    def read_compressed_int(self, b: int = 7) -> int:
+        value = 0
+        i = 0
+        while True:
+            has_next = self.read_bit()
+            value |= self.read_int(b) << (b * i)
+            i += 1
+            if not has_next:
+                break
+        return value
+
+    def _packed_words(self) -> np.ndarray:
+        """Big-endian 64-bit words over the bit stream, padded with two
+        zero words so any (word, word+1) window is in range."""
+        by = np.packbits(self._bits)
+        pad = (-by.size) % 8 + 16
+        by = np.concatenate([by, np.zeros(pad, np.uint8)])
+        return by.view(">u8").astype(np.uint64)
+
+    def read_int_array(self, bits: int, count: int) -> np.ndarray:
+        """Read ``count`` consecutive fixed-width integers (bits <= 64)."""
+        if count == 0:
+            return np.zeros(0, np.uint64)
+        end = self.pos + bits * count
+        if end > self.total:
+            raise EOFError("bulk read past end of stream")
+        chunk = self._bits[self.pos : end].reshape(count, bits)
+        weights = (_U64_1 << np.arange(bits - 1, -1, -1, dtype=np.uint64))
+        out = (chunk.astype(np.uint64) * weights).sum(
+            axis=1, dtype=np.uint64
+        )
+        self.pos = end
+        return out

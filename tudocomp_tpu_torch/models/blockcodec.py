@@ -14,9 +14,10 @@ segment:
   would not shrink: keep the stream bytes);
 - the host assembles the container (numpy, as in the reference).
 
-Decode parses the frames with the native runtime and decodes every
-segment in one launch of K4 (``ops/hufdec.py``). The container bytes do
-not depend on ``batch_lanes``.
+Decode parses the frames with the port's host library
+(``native.py``) and decodes every segment in one launch of K4
+(``ops/hufdec.py``), or on host cores (:meth:`BlockCodec.decompress`).
+The container bytes do not depend on ``batch_lanes``.
 """
 
 from __future__ import annotations
@@ -27,16 +28,17 @@ from dataclasses import dataclass
 import numpy as np
 import torch
 
-from tudocomp_tpu.coders.huffman import HuffmanTable
-from tudocomp_tpu.io.bitio import BitReader, BitWriter
-from tudocomp_tpu.utils.vbyte import (
-    encode_vbyte_array, read_vbyte, write_vbyte,
-)
+from tudocomp_tpu_torch import native
+from tudocomp_tpu_torch.coders.huffman import HuffmanTable
+from tudocomp_tpu_torch.io.bitio import BitReader, BitWriter
 from tudocomp_tpu_torch.ops.hist import histogram_words
 from tudocomp_tpu_torch.ops.hufdec import SEG, decode_segments, decoder_tables
 from tudocomp_tpu_torch.ops.rle import be_words_from_bytes
 from tudocomp_tpu_torch.ops.segpack import (
     huffman_pack_segments, rle_pack_segments,
+)
+from tudocomp_tpu_torch.utils.vbyte import (
+    encode_vbyte_array, read_vbyte, write_vbyte,
 )
 
 MAGIC = b"TBC2"
@@ -125,10 +127,11 @@ def _upload(arr: np.ndarray, device) -> torch.Tensor:
 
 class BlockCodec:
     """Host orchestration: split -> device encode -> container assembly,
-    and parse -> device decode. ``device`` is required: CUDA runs the
-    kernels, the CPU runs their plain versions."""
+    and parse -> device decode. ``device`` defaults to CUDA, which runs
+    the kernels and raises where CUDA is absent; ``device="cpu"`` runs
+    their plain versions."""
 
-    def __init__(self, *, device, offset: int = 0,
+    def __init__(self, *, device="cuda", offset: int = 0,
                  batch_lanes: int = BATCH_LANES,
                  min_code_len: int | None = None):
         self.device = _device(device)
@@ -323,27 +326,17 @@ class BlockCodec:
         orig_len = head.read_compressed_int()
         table = HuffmanTable.read(head) if head.read_bit() else None
         nseg = -(-orig_len // SEG)
-        from tudocomp_tpu import native
-
-        parsed = native.tbc2_parse(data, pos, nseg)
-        if parsed is None:
-            raise RuntimeError("the native runtime did not build")
-        counts, flags, poff, pbytes = parsed
+        counts, flags, poff, pbytes = native.tbc2_parse(data, pos, nseg)
         return table, offset, orig_len, counts, flags, poff, pbytes
 
     def decompress(self, data: bytes) -> bytes:
-        """Host decode with the native batch decoder (the spec path)."""
+        """Host decode on CPU cores with the port's host library."""
         (table, offset, orig_len, counts, flags, poff,
          pbytes) = self._parse(data)
         if orig_len == 0:
             return b""
-        from tudocomp_tpu import native
-
-        out = native.tbc2_decode(data, counts, flags, poff, pbytes,
-                                 orig_len, SEG, table, offset)
-        if out is None:
-            raise RuntimeError("the native runtime did not build")
-        return out
+        return native.tbc2_decode(data, counts, flags, poff, pbytes,
+                                  orig_len, SEG, table, offset)
 
     def decompress_device(self, data: bytes) -> bytes:
         """Parse on the host, then decode every segment with K4."""

@@ -1,7 +1,11 @@
-"""Device ops of the port: the four kernels of the TBC2 path, each a
-wrapper that launches a hand-written CUDA kernel on CUDA tensors and
-runs its plain torch version on CPU tensors."""
+"""Device ops of the port. The seven kernels — K1–K4 of the TBC2 path,
+K5–K7 of the chunked bit packers — are each a wrapper that launches a
+hand-written CUDA kernel on CUDA tensors and runs its plain torch version
+on CPU tensors."""
 
+from tudocomp_tpu_torch.ops.bitpack_chunks import (
+    pack_bytes_huffman_chunks, pack_tokens_chunks, rle_pack_chunks,
+)
 from tudocomp_tpu_torch.ops.hist import histogram_words
 from tudocomp_tpu_torch.ops.hufdec import decode_segments, decoder_tables
 from tudocomp_tpu_torch.ops.segpack import (
@@ -14,7 +18,15 @@ KERNELS = {
     "huffman_pack": huffman_pack_segments,
     "histogram": histogram_words,
     "decode": decode_segments,
+    "pack_tokens_chunks": pack_tokens_chunks,
+    "pack_bytes_huffman_chunks": pack_bytes_huffman_chunks,
+    "rle_pack_chunks": rle_pack_chunks,
 }
+
+#: the kernels of the TBC2 codec's path, and of the chunked packers'
+CODEC_KERNELS = ("rle_pack", "huffman_pack", "histogram", "decode")
+CHUNK_KERNELS = ("pack_tokens_chunks", "pack_bytes_huffman_chunks",
+                 "rle_pack_chunks")
 
 
 def reset_launches() -> None:
@@ -27,7 +39,8 @@ def launch_counts() -> dict:
 
 
 __all__ = [
-    "KERNELS", "decode_segments", "decoder_tables", "histogram_words",
-    "huffman_pack_segments", "launch_counts", "reset_launches",
-    "rle_pack_segments",
+    "CHUNK_KERNELS", "CODEC_KERNELS", "KERNELS", "decode_segments",
+    "decoder_tables", "histogram_words", "huffman_pack_segments",
+    "launch_counts", "pack_bytes_huffman_chunks", "pack_tokens_chunks",
+    "reset_launches", "rle_pack_chunks", "rle_pack_segments",
 ]

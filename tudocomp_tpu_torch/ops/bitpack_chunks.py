@@ -1,0 +1,223 @@
+"""Chunked bit packers: K5 (token pack), K6 (Huffman lookup + pack) and
+K7 (RLE + pack).
+
+Counterparts of ``tudocomp_tpu/ops/bitpack_pallas.py``:
+``pack_tokens_chunks`` (:319), ``pack_bytes_huffman_chunks`` (:245) and
+``rle_pack_chunks`` (:505), with their signatures, shapes and ``cap``
+formulas. Each chunk of ``N`` positions is one stream whose bit offset
+carries across the whole chunk. Each wrapper launches its hand-written
+CUDA kernel (``csrc/bitpack.cu``, ``csrc/rle_chunk_pack.cu``) on CUDA
+tensors and runs its plain torch version on CPU tensors; there is no
+other route.
+
+Output contract: the first ``ceil(bits / 32)`` words of each row plus
+the count; the words past the stream are zero. The TPU's K7 returned
+its count in a slot at word ``cap - 128``; here it is the second output
+and no slot is written. Bit totals are int32, so a chunk must hold fewer
+than ``2**31`` bits: ``32 * N < 2**31``.
+
+u32 arrays are held as int32 tensors of the same bit pattern
+(``ops/bitpack.py:as_i32``).
+"""
+
+from __future__ import annotations
+
+import torch
+
+from tudocomp_tpu_torch import _build
+from tudocomp_tpu_torch.ops.bitpack import pack_tokens
+from tudocomp_tpu_torch.ops.huffman import huffman_pack
+from tudocomp_tpu_torch.ops.rle import RUN_CAP, rle_encode
+
+LANES = 128
+KERNEL_TILE = 2048  # positions per CUDA block (csrc: TILE)
+
+
+def _wt_for(tile: int, max_bits: int) -> int:
+    """The TPU kernel's accumulator width (``bitpack_pallas._wt_for``),
+    which fixes the output width ``cap``."""
+    by_bits = tile * max_bits // 32 + 2 * LANES
+    by_window = ((4095 + max_bits * tile) // 4096) * 128 + 3 * LANES
+    return max(by_bits, by_window)
+
+
+def _check_chunks(n: int, tile: int) -> None:
+    if tile <= 0 or tile % LANES or n % tile:
+        raise ValueError(f"need N % tile == 0 and tile % {LANES} == 0: "
+                         f"N={n}, tile={tile}")
+    if 32 * n >= 1 << 31:
+        raise ValueError(f"N={n}: a chunk's bit total must fit int32")
+
+
+def _check_aligned(t: torch.Tensor, name: str, align: int) -> None:
+    if t.data_ptr() % align:
+        raise ValueError(f"{name}: the kernel needs {align}-byte alignment")
+
+
+def _scratch(c: int, n: int, planes: int, device) -> torch.Tensor:
+    tiles = -(-n // KERNEL_TILE)
+    return torch.empty(planes, c, tiles, dtype=torch.int32, device=device)
+
+
+def pack_tokens_chunks(values: torch.Tensor, lens: torch.Tensor, *,
+                       tile: int = 2048):
+    """K5: pack per-chunk token streams ``values, lens i32[C, N]``
+    (``lens[c, i]`` MSB-first bits of ``values[c, i]``; lengths outside
+    0..32, as u32, are clamped to 32). Returns ``(words i32[C, cap],
+    bits i32[C])`` with ``cap = N + tile + 384``."""
+    c, n = values.shape
+    _build.check(values, torch.int32, (c, n), "values")
+    _build.check(lens, torch.int32, (c, n), "lens")
+    _check_chunks(n, tile)
+    cap = n + tile + 3 * LANES
+    if not _build.on_cuda(values, lens):
+        return pack_tokens_chunks_plain(values, lens, tile=tile)
+    _check_aligned(values, "values", 16)
+    _check_aligned(lens, "lens", 16)
+    words = torch.zeros(c, cap, dtype=torch.int32, device=values.device)
+    bits = torch.zeros(c, dtype=torch.int32, device=values.device)
+    if c and n:
+        scratch = _scratch(c, n, 1, values.device)
+        _build.launch(
+            "tdc_pack_tokens_chunks", values.data_ptr(), lens.data_ptr(),
+            words.data_ptr(), bits.data_ptr(), scratch.data_ptr(), c, n, cap,
+            device=values.device,
+        )
+        pack_tokens_chunks.launches += 1
+    return words, bits
+
+
+pack_tokens_chunks.launches = 0
+
+
+def pack_tokens_chunks_plain(values, lens, *, tile: int = 2048):
+    """Plain torch K5: :func:`ops.bitpack.pack_tokens` per chunk."""
+    c, n = values.shape
+    lens = (lens.long() & 0xFFFFFFFF).clamp(max=32)
+    words = torch.zeros(c, n + tile + 3 * LANES, dtype=torch.int32,
+                        device=values.device)
+    bits = torch.zeros(c, dtype=torch.int32, device=values.device)
+    for i in range(c):
+        w, bits[i] = pack_tokens(values[i], lens[i])
+        words[i, : n + 1] = w
+    return words, bits
+
+
+def _huffman_cap(n: int, tile: int) -> int:
+    return n // 2 + _wt_for(tile, 16) + LANES
+
+
+MAX_CODE_LEN = 16  # K6's cap holds N codes of at most this many bits
+
+
+def _check_code_lengths(sym_len: torch.Tensor) -> None:
+    if bool(((sym_len < 0) | (sym_len > MAX_CODE_LEN)).any()):
+        raise ValueError(f"sym_len must lie in 0..{MAX_CODE_LEN}")
+
+
+def pack_bytes_huffman_chunks(data: torch.Tensor, lengths: torch.Tensor,
+                              sym_code: torch.Tensor, sym_len: torch.Tensor,
+                              *, tile: int = 2048):
+    """K6: canonical-Huffman encode + pack of ``data u8[C, N]`` masked to
+    ``lengths i32[C]``, with the table ``sym_code``/``sym_len`` (i32[256]).
+    Codes are at most 16 bits: the code's low 16 bits are packed in
+    ``sym_len`` bits, and a length outside 0..16 raises ``ValueError``.
+    Returns ``(words i32[C, cap], bits i32[C])`` with
+    ``cap = N/2 + wt + 128``."""
+    c, n = data.shape
+    _build.check(data, torch.uint8, (c, n), "data")
+    _build.check(lengths, torch.int32, (c,), "lengths")
+    _build.check(sym_code, torch.int32, (256,), "sym_code")
+    _build.check(sym_len, torch.int32, (256,), "sym_len")
+    _check_chunks(n, tile)
+    _check_code_lengths(sym_len)
+    cap = _huffman_cap(n, tile)
+    if not _build.on_cuda(data, lengths, sym_code, sym_len):
+        return pack_bytes_huffman_chunks_plain(data, lengths, sym_code,
+                                               sym_len, tile=tile)
+    _check_aligned(data, "data", 8)
+    words = torch.zeros(c, cap, dtype=torch.int32, device=data.device)
+    bits = torch.zeros(c, dtype=torch.int32, device=data.device)
+    if c and n:
+        scratch = _scratch(c, n, 1, data.device)
+        _build.launch(
+            "tdc_pack_huffman_chunks", data.data_ptr(), lengths.data_ptr(),
+            sym_code.data_ptr(), sym_len.data_ptr(), words.data_ptr(),
+            bits.data_ptr(), scratch.data_ptr(), c, n, cap,
+            device=data.device,
+        )
+        pack_bytes_huffman_chunks.launches += 1
+    return words, bits
+
+
+pack_bytes_huffman_chunks.launches = 0
+
+
+def pack_bytes_huffman_chunks_plain(data, lengths, sym_code, sym_len, *,
+                                    tile: int = 2048):
+    """Plain torch K6: :func:`ops.huffman.huffman_pack` per chunk."""
+    c, n = data.shape
+    cap = _huffman_cap(n, tile)
+    code = sym_code.long() & 0xFFFF
+    words = torch.zeros(c, cap, dtype=torch.int32, device=data.device)
+    bits = torch.zeros(c, dtype=torch.int32, device=data.device)
+    keep = min(n + 1, cap)  # <= 16 bits a byte: the rest is zero
+    for i in range(c):
+        length = int(lengths[i].clamp(0, n))
+        w, bits[i] = huffman_pack(data[i], length, code, sym_len)
+        words[i, :keep] = w[:keep]
+    return words, bits
+
+
+def _rle_cap(n: int, tile: int) -> int:
+    cap = n + _wt_for(tile, 32) + 2 * LANES
+    return cap + (-cap) % LANES
+
+
+def _check_offset(offset: int) -> None:
+    if not 0 <= offset < RUN_CAP // 2:
+        raise ValueError(f"RLE offset must lie in 0..{RUN_CAP // 2 - 1}")
+
+
+def rle_pack_chunks(data: torch.Tensor, lengths: torch.Tensor, *,
+                    tile: int = 2048, offset: int = 0):
+    """K7: RLE (runs cut into ``RUN_CAP`` pieces, ``ops/rle.py``) of
+    ``data u8[C, N]`` masked to ``lengths i32[C]``, packed. Returns
+    ``(words i32[C, cap], rle_bytes i32[C])``: the byte stream as
+    big-endian words and its length."""
+    c, n = data.shape
+    _build.check(data, torch.uint8, (c, n), "data")
+    _build.check(lengths, torch.int32, (c,), "lengths")
+    _check_chunks(n, tile)
+    _check_offset(offset)
+    cap = _rle_cap(n, tile)
+    if not _build.on_cuda(data, lengths):
+        return rle_pack_chunks_plain(data, lengths, tile=tile, offset=offset)
+    _check_aligned(data, "data", 8)
+    words = torch.zeros(c, cap, dtype=torch.int32, device=data.device)
+    nbytes = torch.zeros(c, dtype=torch.int32, device=data.device)
+    if c and n:
+        scratch = _scratch(c, n, 2, data.device)
+        _build.launch(
+            "tdc_rle_pack_chunks", data.data_ptr(), lengths.data_ptr(),
+            words.data_ptr(), nbytes.data_ptr(), scratch.data_ptr(), c, n,
+            cap, offset, device=data.device,
+        )
+        rle_pack_chunks.launches += 1
+    return words, nbytes
+
+
+rle_pack_chunks.launches = 0
+
+
+def rle_pack_chunks_plain(data, lengths, *, tile: int = 2048,
+                          offset: int = 0):
+    """Plain torch K7: :func:`ops.rle.rle_encode` per chunk."""
+    c, n = data.shape
+    words = torch.zeros(c, _rle_cap(n, tile), dtype=torch.int32,
+                        device=data.device)
+    nbytes = torch.zeros(c, dtype=torch.int32, device=data.device)
+    for i in range(c):
+        w, nbytes[i] = rle_encode(data[i], lengths[i], offset)
+        words[i, : n + 1] = w
+    return words, nbytes

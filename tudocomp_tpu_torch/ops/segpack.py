@@ -14,8 +14,9 @@ from __future__ import annotations
 import torch
 
 from tudocomp_tpu_torch import _build
+from tudocomp_tpu_torch.ops.bitpack import as_i32
 from tudocomp_tpu_torch.ops.rle import (
-    MAX_OFFSET, as_i32, be_words_from_bytes, bytes_from_words, rle_tokens,
+    MAX_OFFSET, be_words_from_bytes, bytes_from_words, rle_segment_tokens,
 )
 
 SEG = 2048            # input bytes per segment
@@ -63,7 +64,7 @@ def rle_pack_segments_plain(rows, lens, *, offset: int = 0):
     exclusive cumsum of token sizes, and a scatter of token bytes."""
     _check_offset(offset)
     nc = rows.shape[0]
-    tok, nbytes = rle_tokens(rows, lens, offset)
+    tok, nbytes = rle_segment_tokens(rows, lens, offset)
     start = torch.cumsum(nbytes, dim=1) - nbytes
     out = torch.zeros(nc, SEG, dtype=torch.uint8, device=rows.device)
     for k in range(4):
