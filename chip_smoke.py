@@ -22,7 +22,14 @@ It needs one CUDA device and exits non-zero without one. Phases:
    (Huffman + pack) with the table of the corpus histogram, K5 on the
    Huffman tokens (equal to K6), chunk 0 of K6 decoded back with the
    port's host decoder; launch counts of that run, then each kernel
-   against its plain version (exact equality, both times).
+   against its plain version (exact equality, both times);
+7. the stage probes (P1-P4: K2 cut after each stage in its word and
+   byte forms, the data-movement floor, placement under three
+   strategies) on the same 256 MiB as 131,072 segments and on the main
+   path's 16 MiB batch: launch counts of that run, then each variant
+   against its plain version at both sizes. The stage probes take K2's
+   own inputs there: K1's escape-selected streams, their counts and the
+   table of the sampled histogram.
 
 Each kernel's line carries its bound: the bytes it must move (inputs
 read once, outputs written once, counted from this run's data) over the
@@ -391,6 +398,134 @@ SOURCES = {
                         "tudocomp_tpu/ops/bitpack_pallas.py:371"),
 }
 
+SEG = 2048
+
+
+def probe_inputs(corpus, dev) -> dict:
+    """The probes' inputs for ``corpus`` as segments: the rows, and K2's
+    inputs on the codec's path (K1's escape-selected stream words, in
+    both forms, their counts, the table of the sampled histogram)."""
+    import torch
+
+    from tudocomp_tpu_torch.models.blockcodec import (
+        BlockCodec, device_tables, rle_stage,
+    )
+    from tudocomp_tpu_torch.ops.rle import bytes_from_words
+
+    codec = BlockCodec(device=dev)
+    rows = torch.from_numpy(corpus.reshape(-1, SEG)).to(dev)
+    nseg = rows.shape[0]
+    lens = torch.full((nseg,), SEG, dtype=torch.int32, device=dev)
+    sampled = codec.sample_rule(nseg)
+    words, counts, _, hist = rle_stage(
+        rows, lens, offset=0, hist_rows=codec._hist_rows(0, nseg, sampled))
+    t = device_tables(codec._table_from_hist(hist.cpu().numpy(), sampled),
+                      dev)
+    return {"rows": rows, "words": words,
+            "stream": bytes_from_words(words, SEG).contiguous(),
+            "counts": counts, "code": t["sym_code"], "length": t["sym_len"]}
+
+
+def probe_cases(x: dict) -> list:
+    """Every probe variant on ``probe_inputs`` ``x``: its name, source,
+    the TPU kernel it stands for, kernel and plain calls, the bytes and
+    operations its function needs, and its library call (or None)."""
+    import functools
+
+    import torch
+
+    from tudocomp_tpu_torch.probes import ablate, floor, place
+
+    nseg = x["rows"].shape[0]
+    stream = int(x["counts"].sum())
+    csrc = "tudocomp_tpu_torch/csrc/"
+    cases = []
+    for bytes_input in (False, True):
+        data = x["stream"] if bytes_input else x["words"]
+        for stage in range(len(ablate.STAGES)):
+            args = (data, x["counts"], x["code"], x["length"])
+            kw = {"stage": stage, "bytes_input": bytes_input}
+            out = (4 * words_and_counts(nseg, 512)
+                   if stage == ablate.FULL else 4 * nseg)
+            cases.append({
+                "name": ablate.variant(stage, bytes_input),
+                "source": csrc + "huff_pack.cu",
+                "replaces": ("etc/probe_ablate.py:58" if bytes_input
+                             else "etc/probe_ablate_w4.py:55"),
+                "kernel": functools.partial(ablate.huffman_pack_stage,
+                                            *args, **kw),
+                "plain": functools.partial(ablate.huffman_pack_stage_plain,
+                                           *args, **kw),
+                # live bytes and counts in (+ the table from stage 1)
+                "nbytes": stream + 4 * nseg + (2 * 4 * 256 if stage else 0)
+                + out,
+                "nops": OPS_PER_ELEM * stream, "library": None,
+            })
+    rows = x["rows"]
+    for function in floor.FUNCTIONS:
+        for form in floor.FORMS:
+            for group in floor.GROUPS:
+                kw = {"function": function, "form": form, "group": group}
+                copy = function == "copy"
+                cases.append({
+                    "name": floor.variant(function, form, group),
+                    "source": csrc + "probe_floor.cu",
+                    "replaces": ("etc/probe_floor.py:101" if form == "vec16"
+                                 else "etc/probe_floor.py:62"),
+                    "kernel": functools.partial(floor.floor_probe, rows,
+                                                **kw),
+                    "plain": functools.partial(floor.floor_probe_plain, rows,
+                                               function=function),
+                    "nbytes": SEG * nseg + 4 * nseg
+                    + (4 * 512 * nseg if copy else 0),
+                    "nops": SEG * nseg,
+                    "library": None if copy else functools.partial(
+                        torch.sum, rows, 1, dtype=torch.int32),
+                })
+    for strategy in place.STRATEGIES:
+        for stride in place.STRIDES:
+            cases.append({
+                "name": place.variant(strategy, stride),
+                "source": csrc + "probe_place.cu",
+                "replaces": "etc/probe_int8.py:49",
+                "kernel": functools.partial(place.place_tokens, rows,
+                                            strategy=strategy, stride=stride),
+                "plain": functools.partial(place.place_tokens_plain, rows,
+                                           stride=stride),
+                "nbytes": SEG * nseg + 4 * words_and_counts(
+                    nseg, place.OUT_WORDS),
+                "nops": OPS_PER_ELEM * SEG * nseg, "library": None,
+            })
+    return cases
+
+
+def probe_path(corpus, dev, check: Checker) -> tuple[dict, list]:
+    """Phase 7: every probe variant on the whole corpus and on the main
+    path's first 16 MiB batch. Returns the launch counts of that run and
+    the whole corpus's cases; then compares each variant with its plain
+    version at both sizes (the 16 MiB results under ``name@16MiB``)."""
+    import torch
+
+    from tudocomp_tpu_torch.ops import launch_counts, reset_launches
+
+    sizes = {"": probe_inputs(corpus, dev),
+             "@16MiB": probe_inputs(corpus[: 8192 * SEG], dev)}
+    runs = {tag: probe_cases(x) for tag, x in sizes.items()}
+    reset_launches()
+    for cases in runs.values():
+        for case in cases:
+            case["kernel"]()
+    torch.cuda.synchronize()
+    counts = launch_counts()
+    for tag, cases in runs.items():
+        print(f"-- {sizes[tag]['rows'].shape[0]} segments")
+        for case in cases:
+            check(case["name"] + tag, case["kernel"], case["plain"],
+                  nbytes=case["nbytes"], nops=case["nops"],
+                  library=case["library"])
+    return counts, runs[""]
+
+
 def require_launched(counts: dict, names) -> dict:
     """The path's launch counts; raises if one of its kernels never ran."""
     got = {k: counts[k] for k in names}
@@ -429,13 +564,22 @@ def main() -> int:
     chunk_launches = require_launched(chunk_counts, CHUNK_KERNELS)
     print("   launch counts", json.dumps(chunk_launches))
     launches.update(chunk_launches)
+    print("== phase 7: stage probes")
+    from tudocomp_tpu_torch.ops import PROBE_KERNELS
+
+    probe_counts, probes = probe_path(corpus, dev, check)
+    probe_launches = require_launched(probe_counts, PROBE_KERNELS)
+    print("   launch counts", json.dumps(probe_launches))
+    launches.update(probe_launches)
+    sources = dict(SOURCES)
+    sources.update({c["name"]: (c["source"], c["replaces"]) for c in probes})
     loaded = [m for m in ("jax", "tudocomp_tpu") if m in sys.modules]
     if loaded:
         raise AssertionError(f"the port imported {loaded}")
     print(json.dumps({"kernels": [
         {"name": name, "route": "cuda", "source": src, "replaces": rep,
          "launches": launches[name], **check.res[name]}
-        for name, (src, rep) in SOURCES.items()
+        for name, (src, rep) in sources.items()
     ]}))
     print(card)
     print(json.dumps({"ok": True, "device": {

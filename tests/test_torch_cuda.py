@@ -29,6 +29,7 @@ from tudocomp_tpu_torch.ops.segpack import (
     huffman_pack_segments, huffman_pack_segments_plain, rle_pack_segments,
     rle_pack_segments_plain,
 )
+from tudocomp_tpu_torch.probes import ablate, floor, place
 
 pytestmark = pytest.mark.cuda
 
@@ -219,3 +220,62 @@ def test_pack_tokens_chunks_equals_rle_pack_chunks(cuda):
     assert torch.equal(bits, 8 * nbytes)
     width = min(words.shape[1], tw.shape[1])
     assert torch.equal(words[:, :width], tw[:, :width])
+
+
+def _as_tuple(x):
+    return x if isinstance(x, tuple) else (x,)
+
+
+def _stage_case(dev, nc: int):
+    """K2's inputs in both forms: the rows of ``_rows`` (garbage past
+    short counts, a 1-byte segment) and their big-endian words, with a
+    table of the rows' histogram."""
+    rows, lens = _rows(13, nc)
+    hist = np.bincount(rows.reshape(-1), minlength=256) + 1
+    t = device_tables(HuffmanTable.from_counts(hist, max_len=16, min_len=3),
+                      dev)
+    words = rows.view(">u4").astype(np.uint32).view(np.int32)
+    return (*_to(dev, rows, words, lens), t["sym_code"], t["sym_len"])
+
+
+@pytest.mark.parametrize("nc", [48, 7])
+@pytest.mark.parametrize("bytes_input", [False, True])
+@pytest.mark.parametrize("stage", range(len(ablate.STAGES)))
+def test_huff_stage_matches_plain(cuda, stage, bytes_input, nc):
+    rows, words, lens, code, length = _stage_case(cuda, nc)
+    data = rows if bytes_input else words
+    kw = dict(stage=stage, bytes_input=bytes_input)
+    _equal(_as_tuple(ablate.huffman_pack_stage(data, lens, code, length,
+                                               **kw)),
+           _as_tuple(ablate.huffman_pack_stage_plain(data, lens, code,
+                                                     length, **kw)))
+
+
+def test_huff_pack_equals_stage_4(cuda):
+    rows, words, lens, code, length = _stage_case(cuda, 48)
+    want = huffman_pack_segments(words, lens, code, length)
+    _equal(ablate.huffman_pack_stage(words, lens, code, length, stage=4),
+           want)
+    _equal(ablate.huffman_pack_stage(rows, lens, code, length, stage=4,
+                                     bytes_input=True), want)
+
+
+@pytest.mark.parametrize("nc", [48, 7])
+@pytest.mark.parametrize("variant", [
+    (f, m, g) for f in floor.FUNCTIONS for m in floor.FORMS
+    for g in floor.GROUPS])
+def test_floor_matches_plain(cuda, variant, nc):
+    function, form, group = variant
+    (rows,) = _to(cuda, _rows(17, nc)[0])
+    _equal(_as_tuple(floor.floor_probe(rows, function=function, form=form,
+                                       group=group)),
+           _as_tuple(floor.floor_probe_plain(rows, function=function)))
+
+
+@pytest.mark.parametrize("nc", [48, 7])
+@pytest.mark.parametrize("stride", place.STRIDES)
+@pytest.mark.parametrize("strategy", place.STRATEGIES)
+def test_place_matches_plain(cuda, strategy, stride, nc):
+    (rows,) = _to(cuda, _rows(19, nc)[0])
+    _equal(place.place_tokens(rows, strategy=strategy, stride=stride),
+           place.place_tokens_plain(rows, stride=stride))

@@ -59,6 +59,14 @@ _SIGNATURES = {
     # data, lengths, words_out, bytes_out, scratch, chunks, n, cap,
     # offset, stream
     "tdc_rle_pack_chunks": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _P],
+    # the stage probes (``probes/``):
+    # data, counts, sym_code, sym_len, words_out, bits_out, nc, stage,
+    # bytes_input, stream
+    "tdc_huff_pack_stage": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _P],
+    # rows, words_out, sums_out, nc, copy, vec16, group, stream
+    "tdc_probe_floor": [_P, _P, _P, _I, _I, _I, _I, _P],
+    # rows, words_out, bits_out, nc, strategy, stride, stream
+    "tdc_probe_place": [_P, _P, _P, _I, _I, _I, _P],
 }
 
 #: host entry points (``csrc/host/tbc2.cpp``): name -> argtypes; each
@@ -231,6 +239,13 @@ def check(t, dtype, shape, name: str) -> None:
         )
     if not t.is_contiguous():
         raise ValueError(f"{name}: not contiguous")
+
+
+def check_aligned(t, name: str, align: int) -> None:
+    """Raise unless ``t``'s data starts on an ``align``-byte boundary,
+    which the kernel's vector loads need."""
+    if t.data_ptr() % align:
+        raise ValueError(f"{name}: the kernel needs {align}-byte alignment")
 
 
 def launch(name: str, *args, device) -> None:

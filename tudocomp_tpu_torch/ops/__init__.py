@@ -1,7 +1,8 @@
 """Device ops of the port. The seven kernels — K1–K4 of the TBC2 path,
 K5–K7 of the chunked bit packers — are each a wrapper that launches a
 hand-written CUDA kernel on CUDA tensors and runs its plain torch version
-on CPU tensors."""
+on CPU tensors. The launch counts also cover the stage probes'
+variants (``tudocomp_tpu_torch.probes``)."""
 
 from tudocomp_tpu_torch.ops.bitpack_chunks import (
     pack_bytes_huffman_chunks, pack_tokens_chunks, rle_pack_chunks,
@@ -11,6 +12,8 @@ from tudocomp_tpu_torch.ops.hufdec import decode_segments, decoder_tables
 from tudocomp_tpu_torch.ops.segpack import (
     huffman_pack_segments, rle_pack_segments,
 )
+# after the ops it uses: the probes import ops.segpack
+from tudocomp_tpu_torch.probes import COUNTERS as _PROBE_COUNTERS
 
 #: the kernel wrappers; each counts its launches in ``.launches``
 KERNELS = {
@@ -27,20 +30,24 @@ KERNELS = {
 CODEC_KERNELS = ("rle_pack", "huffman_pack", "histogram", "decode")
 CHUNK_KERNELS = ("pack_tokens_chunks", "pack_bytes_huffman_chunks",
                  "rle_pack_chunks")
+#: the stage probes' variants (P1–P4), each with its own launch count
+PROBE_KERNELS = tuple(_PROBE_COUNTERS)
 
 
 def reset_launches() -> None:
-    for fn in KERNELS.values():
+    for fn in (*KERNELS.values(), *_PROBE_COUNTERS.values()):
         fn.launches = 0
 
 
 def launch_counts() -> dict:
-    return {name: fn.launches for name, fn in KERNELS.items()}
+    return {name: fn.launches
+            for name, fn in {**KERNELS, **_PROBE_COUNTERS}.items()}
 
 
 __all__ = [
-    "CHUNK_KERNELS", "CODEC_KERNELS", "KERNELS", "decode_segments",
-    "decoder_tables", "histogram_words", "huffman_pack_segments",
-    "launch_counts", "pack_bytes_huffman_chunks", "pack_tokens_chunks",
-    "reset_launches", "rle_pack_chunks", "rle_pack_segments",
+    "CHUNK_KERNELS", "CODEC_KERNELS", "KERNELS", "PROBE_KERNELS",
+    "decode_segments", "decoder_tables", "histogram_words",
+    "huffman_pack_segments", "launch_counts", "pack_bytes_huffman_chunks",
+    "pack_tokens_chunks", "reset_launches", "rle_pack_chunks",
+    "rle_pack_segments",
 ]

@@ -49,11 +49,6 @@ def _check_chunks(n: int, tile: int) -> None:
         raise ValueError(f"N={n}: a chunk's bit total must fit int32")
 
 
-def _check_aligned(t: torch.Tensor, name: str, align: int) -> None:
-    if t.data_ptr() % align:
-        raise ValueError(f"{name}: the kernel needs {align}-byte alignment")
-
-
 def _scratch(c: int, n: int, planes: int, device) -> torch.Tensor:
     tiles = -(-n // KERNEL_TILE)
     return torch.empty(planes, c, tiles, dtype=torch.int32, device=device)
@@ -72,8 +67,8 @@ def pack_tokens_chunks(values: torch.Tensor, lens: torch.Tensor, *,
     cap = n + tile + 3 * LANES
     if not _build.on_cuda(values, lens):
         return pack_tokens_chunks_plain(values, lens, tile=tile)
-    _check_aligned(values, "values", 16)
-    _check_aligned(lens, "lens", 16)
+    _build.check_aligned(values, "values", 16)
+    _build.check_aligned(lens, "lens", 16)
     words = torch.zeros(c, cap, dtype=torch.int32, device=values.device)
     bits = torch.zeros(c, dtype=torch.int32, device=values.device)
     if c and n:
@@ -135,7 +130,7 @@ def pack_bytes_huffman_chunks(data: torch.Tensor, lengths: torch.Tensor,
     if not _build.on_cuda(data, lengths, sym_code, sym_len):
         return pack_bytes_huffman_chunks_plain(data, lengths, sym_code,
                                                sym_len, tile=tile)
-    _check_aligned(data, "data", 8)
+    _build.check_aligned(data, "data", 8)
     words = torch.zeros(c, cap, dtype=torch.int32, device=data.device)
     bits = torch.zeros(c, dtype=torch.int32, device=data.device)
     if c and n:
@@ -193,7 +188,7 @@ def rle_pack_chunks(data: torch.Tensor, lengths: torch.Tensor, *,
     cap = _rle_cap(n, tile)
     if not _build.on_cuda(data, lengths):
         return rle_pack_chunks_plain(data, lengths, tile=tile, offset=offset)
-    _check_aligned(data, "data", 8)
+    _build.check_aligned(data, "data", 8)
     words = torch.zeros(c, cap, dtype=torch.int32, device=data.device)
     nbytes = torch.zeros(c, dtype=torch.int32, device=data.device)
     if c and n:

@@ -39,8 +39,7 @@ def rle_pack_segments(rows: torch.Tensor, lens: torch.Tensor, *,
     nc = rows.shape[0]
     _build.check(rows, torch.uint8, (nc, SEG), "rows")
     _build.check(lens, torch.int32, (nc,), "lens")
-    if rows.data_ptr() % 8:
-        raise ValueError("rows: the kernel needs 8-byte alignment")
+    _build.check_aligned(rows, "rows", 8)
     if not _build.on_cuda(rows, lens):
         return rle_pack_segments_plain(rows, lens, offset=offset)
     words = torch.empty(nc, STREAM_WORDS, dtype=torch.int32,
@@ -106,25 +105,38 @@ huffman_pack_segments.launches = 0
 
 
 def huffman_pack_segments_plain(words, counts, sym_code, sym_len):
-    """Plain torch K2: table lookup, exclusive cumsum of code lengths,
-    and a scatter-add of each code's (at most two) word parts — the
-    parts' bit ranges are disjoint, so adding them is OR-ing them."""
-    nc = words.shape[0]
+    """Plain torch K2: table lookup, then :func:`pack_rows`."""
+    _, _, code, ln = huffman_terms(words, counts, sym_code, sym_len)
+    return pack_rows(code, ln, STREAM_WORDS), ln.sum(dim=1).to(torch.int32)
+
+
+def huffman_terms(words, counts, sym_code, sym_len):
+    """K2's table lookup, per position of each segment: ``(sym, live,
+    code, ln)``, all int64 or bool ``[NC, 2048]``; ``code`` and ``ln``
+    are 0 past ``counts``."""
     sym = bytes_from_words(words, SEG).long()
     live = (torch.arange(SEG, device=words.device)[None, :]
             < counts.long()[:, None])
     ln = torch.where(live, sym_len.long().clamp(0, 16)[sym], 0)
     code = sym_code.long()[sym] & ((1 << ln) - 1)
+    return sym, live, code, ln
+
+
+def pack_rows(code, ln, width: int):
+    """Each row's codes (int64, ``ln <= 32`` bits, masked) packed
+    MSB-first at the exclusive cumsum of ``ln``; the first ``width``
+    words as int32. Each code's (at most two) word parts are
+    scatter-added: their bit ranges are disjoint, so adding them is
+    OR-ing them."""
     off = torch.cumsum(ln, dim=1) - ln
     w0 = off >> 5
-    sh = 32 - (off & 31) - ln  # in [-15, 32]
+    sh = 32 - (off & 31) - ln  # in [-31, 32]
     part1 = torch.where(sh >= 0, code << sh.clamp(min=0),
                         code >> (-sh).clamp(min=0))
     spill = torch.where(sh < 0, code << (32 + sh).clamp(max=32), 0)
-    acc = torch.zeros(nc, STREAM_WORDS + 2, dtype=torch.int64,
-                      device=words.device)
+    acc = torch.zeros(code.shape[0], width + 2, dtype=torch.int64,
+                      device=code.device)
     # parts past the kept words land in the two discarded columns
-    acc.scatter_add_(1, w0.clamp(max=STREAM_WORDS), part1)
-    acc.scatter_add_(1, (w0 + 1).clamp(max=STREAM_WORDS + 1),
-                     spill & 0xFFFFFFFF)
-    return as_i32(acc[:, :STREAM_WORDS]), ln.sum(dim=1).to(torch.int32)
+    acc.scatter_add_(1, w0.clamp(max=width), part1)
+    acc.scatter_add_(1, (w0 + 1).clamp(max=width + 1), spill & 0xFFFFFFFF)
+    return as_i32(acc[:, :width])
