@@ -6,14 +6,17 @@ It needs one CUDA device and exits non-zero without one. Phases:
 
 1. toolchain: torch, CUDA, nvcc, Triton, the card and its power limit,
    and the build of the CUDA kernels from ``tudocomp_tpu_torch/csrc``;
-2. each kernel (K1 RLE pack, K2 Huffman pack, K3 histogram, K4 decode)
-   against its plain torch version on the card, at the shapes of the
-   main path's first 16 MiB batch: exact equality, both times (CUDA
-   events, after a warm-up);
+2. each kernel (K1 RLE pack, K1's select entry with the ``rle_raw``
+   escape, K2 Huffman pack, K3 histogram, K4 decode) against its plain
+   torch version on the card, at the shapes of the main path's first
+   16 MiB batch: exact equality, both times (CUDA events, after a
+   warm-up);
 3. the main path at 256 MiB: ``BlockCodec(device=cuda).compress`` of
    ``bench.make_corpus(256 << 20)`` and ``decompress_device``; the
    output must equal the input, and the port's host decoder must
-   restore it from the same container;
+   restore it from the same container; then K4 alone at the shape
+   ``decompress_device`` launches it, one launch over the whole
+   container, against its plain version and the input bytes;
 4. a 20 MiB slice (past the 16 MiB histogram cap): the CUDA container
    equals the CPU one (plain versions) byte for byte;
 5. every kernel of phase 3 ran there (launch counts);
@@ -156,7 +159,7 @@ def kernels_vs_plain(corpus, dev, check: Checker) -> None:
     from tudocomp_tpu_torch.models.blockcodec import (
         BlockCodec, device_tables, huff_stage,
     )
-    from tudocomp_tpu_torch.ops import hist, hufdec, segpack
+    from tudocomp_tpu_torch.ops import hist, segpack
 
     codec = BlockCodec(device=dev)
     data = corpus[: 8192 * 2048].tobytes()
@@ -166,17 +169,21 @@ def kernels_vs_plain(corpus, dev, check: Checker) -> None:
     nseg = rows.shape[0]
     in_bytes = int(lens_np.sum())
 
-    words, rle_lens = check(
+    check(
         "rle_pack",
         lambda: segpack.rle_pack_segments(rows, lens),
         lambda: segpack.rle_pack_segments_plain(rows, lens),
         nbytes=in_bytes + 4 * nseg + 4 * words_and_counts(nseg, 512),
         nops=OPS_PER_ELEM * in_bytes,
     )
-    rle_raw = rle_lens > lens
-    sel = torch.where(rle_raw[:, None], segpack.be_words_from_bytes(rows),
-                      words)
-    counts = torch.where(rle_raw, lens, rle_lens)
+    sel, counts, rle_raw = check(
+        "rle_select",
+        lambda: segpack.rle_select_segments(rows, lens),
+        lambda: segpack.rle_select_segments_plain(rows, lens),
+        # + the escape flag (one byte a segment)
+        nbytes=in_bytes + 4 * nseg + 4 * words_and_counts(nseg, 512) + nseg,
+        nops=OPS_PER_ELEM * in_bytes,
+    )
     sub, subc = sel[::8].contiguous(), counts[::8].contiguous()
     live = segpack.bytes_from_words(sub, segpack.SEG)[
         torch.arange(segpack.SEG, device=dev)[None, :] < subc[:, None]
@@ -209,25 +216,42 @@ def kernels_vs_plain(corpus, dev, check: Checker) -> None:
         huff_raw.cpu().numpy(), out.cpu().numpy().view(np.uint32),
         bits.cpu().numpy(),
     )
-    _, offset, orig_len, cnt, flags, poff, pbytes = codec._parse(container)
+    check_decode("decode", codec, container, data, dev, check)
+
+
+def check_decode(name, codec, container: bytes, data: bytes, dev,
+                 check: Checker) -> None:
+    """K4 on the whole of ``container`` in one launch, as
+    ``decompress_device`` runs it, against its plain version and the
+    input bytes ``data``."""
+    import numpy as np
+    import torch
+
+    from tudocomp_tpu_torch.models.blockcodec import device_tables
+    from tudocomp_tpu_torch.ops import hufdec
+
+    table, offset, orig_len, cnt, flags, poff, pbytes = codec._parse(
+        container)
+    t = device_tables(table, dev)
     args = [torch.from_numpy(np.ascontiguousarray(a)).to(dev) for a in (
         np.frombuffer(container, np.uint8).copy(), poff.astype(np.int64),
         pbytes.astype(np.int64), cnt.astype(np.int32),
         flags.astype(np.uint8))] + [t["thresh"], t["offs"], t["symbols"]]
     (dec,) = check(
-        "decode",
+        name,
         lambda: hufdec.decode_segments(*args, offset=offset,
-                                       orig_len=orig_len),
+                                       orig_len=orig_len, fast=t["fast"]),
         lambda: hufdec.decode_segments_plain(*args, offset=offset,
                                              orig_len=orig_len),
         # payloads + per-segment poff, pbytes, count, flag + tables in;
         # the output bytes out
-        nbytes=int(pbytes.sum()) + 21 * nseg + 4 * 32 + 256 + orig_len,
+        nbytes=int(pbytes.sum()) + 21 * cnt.size + 4 * 32 + 256
+        + 2 * 1024 + orig_len,
         nops=OPS_PER_ELEM * orig_len,
         reps=(10, 1),
     )
     if dec.cpu().numpy().tobytes() != data:
-        raise AssertionError("K4 did not restore the 16 MiB batch")
+        raise AssertionError(f"K4 did not restore the input ({name})")
 
 
 def words_and_counts(rows: int, width: int) -> int:
@@ -235,9 +259,10 @@ def words_and_counts(rows: int, width: int) -> int:
     return rows * width + rows
 
 
-def main_path(corpus, dev) -> dict:
+def main_path(corpus, dev, check: Checker) -> dict:
     """Phase 3: the 256 MiB round trip through the codec's entry points,
-    counting kernel launches. Returns the launch counts."""
+    counting kernel launches; then K4 at that shape alone. Returns the
+    launch counts of the round trip."""
     from tudocomp_tpu_torch import BlockCodec
     from tudocomp_tpu_torch.ops import launch_counts, reset_launches
 
@@ -264,6 +289,7 @@ def main_path(corpus, dev) -> dict:
     print(f"  decode parse {dec['parse']:.3f} s, device decode "
           f"{dec['decode']:.3f} s ({gb / dec['decode']:.3f} GB/s)")
     print(f"  host decode {t_host:.3f} s ({gb / t_host:.3f} GB/s)")
+    check_decode("decode@256MiB", codec, container, data, dev, check)
     return counts
 
 
@@ -352,44 +378,45 @@ def chunk_path(corpus, dev, check: Checker) -> dict:
         raise AssertionError("chunk 0 of K6 does not decode to its input")
     print("K5 == K7 and K5 == K6 on every chunk; chunk 0 of K6 decodes")
 
-    def out_bytes(bits) -> int:  # stream words and counts written
-        return 4 * int(((bits.long() + 31) // 32).sum()) + 4 * c
-
+    # each output written once: every word of the [C, cap] rows (the
+    # zero tail past each stream is part of the output contract) and the
+    # counts; the bound of the stream words alone is printed beside it
     positions = data.numel()
-    check(
-        "rle_pack_chunks",
-        lambda: bc.rle_pack_chunks(data, lengths),
-        lambda: bc.rle_pack_chunks_plain(data, lengths),
-        nbytes=positions + 4 * c + out_bytes(rle_bytes * 8),
-        nops=OPS_PER_ELEM * positions, reps=(10, 1),
-    )
-    check(
-        "pack_tokens_chunks",
-        lambda: bc.pack_tokens_chunks(values, lens),
-        lambda: bc.pack_tokens_chunks_plain(values, lens),
-        nbytes=8 * positions + out_bytes(tok_bits),
-        nops=OPS_PER_ELEM * positions, reps=(10, 1),
-    )
-    check(
-        "pack_bytes_huffman_chunks",
-        lambda: bc.pack_bytes_huffman_chunks(data, lengths, code, length),
-        lambda: bc.pack_bytes_huffman_chunks_plain(data, lengths, code,
-                                                   length),
-        nbytes=positions + 4 * c + 2 * 4 * 256 + out_bytes(huf_bits),
-        nops=OPS_PER_ELEM * positions, reps=(10, 1),
-    )
+    for name, kernel, plain, in_bytes, words, bits in (
+        ("rle_pack_chunks", lambda: bc.rle_pack_chunks(data, lengths),
+         lambda: bc.rle_pack_chunks_plain(data, lengths),
+         positions + 4 * c, rle_words, rle_bytes * 8),
+        ("pack_tokens_chunks", lambda: bc.pack_tokens_chunks(values, lens),
+         lambda: bc.pack_tokens_chunks_plain(values, lens),
+         8 * positions, tok_words, tok_bits),
+        ("pack_bytes_huffman_chunks",
+         lambda: bc.pack_bytes_huffman_chunks(data, lengths, code, length),
+         lambda: bc.pack_bytes_huffman_chunks_plain(data, lengths, code,
+                                                    length),
+         positions + 4 * c + 2 * 4 * 256, huf_words, huf_bits),
+    ):
+        check(name, kernel, plain,
+              nbytes=in_bytes + 4 * words.numel() + 4 * c,
+              nops=OPS_PER_ELEM * positions, reps=(10, 1))
+        stream = 4 * int(((bits.long() + 31) // 32).sum()) + 4 * c
+        print(f"   {name}: bound of the stream words alone "
+              f"{bound(in_bytes + stream, 0)['bound_ms']:.4f} ms")
     return counts
 
 
 SOURCES = {
     "rle_pack": ("tudocomp_tpu_torch/csrc/rle_pack.cu",
                  "tudocomp_tpu/ops/segpack_pallas.py:1032"),
+    "rle_select": ("tudocomp_tpu_torch/csrc/rle_pack.cu",
+                   "tudocomp_tpu/ops/segpack_pallas.py:1032"),
     "huffman_pack": ("tudocomp_tpu_torch/csrc/huff_pack.cu",
                      "tudocomp_tpu/ops/segpack_pallas.py:957"),
     "histogram": ("tudocomp_tpu_torch/csrc/hist.cu",
                   "tudocomp_tpu/ops/hist_pallas.py:26"),
     "decode": ("tudocomp_tpu_torch/csrc/hufdec.cu",
                "tudocomp_tpu/ops/hufdec_pallas.py:74"),
+    "decode@256MiB": ("tudocomp_tpu_torch/csrc/hufdec.cu",
+                      "tudocomp_tpu/ops/hufdec_pallas.py:74"),
     "pack_tokens_chunks": ("tudocomp_tpu_torch/csrc/bitpack.cu",
                            "tudocomp_tpu/ops/bitpack_pallas.py:187"),
     "pack_bytes_huffman_chunks": ("tudocomp_tpu_torch/csrc/bitpack.cu",
@@ -552,13 +579,18 @@ def main() -> int:
     print("== phase 2: kernels vs plain versions")
     kernels_vs_plain(corpus, dev, check)
     print("== phase 3: main path")
-    counts = main_path(corpus, dev)
+    counts = main_path(corpus, dev, check)
     print("== phase 4: CUDA vs CPU container")
     cross_device(corpus, dev)
     from tudocomp_tpu_torch.ops import CHUNK_KERNELS, CODEC_KERNELS
 
-    launches = require_launched(counts, CODEC_KERNELS)
-    print("== phase 5: launch counts", json.dumps(launches))
+    print("== phase 5: launch counts",
+          json.dumps(require_launched(counts, CODEC_KERNELS)))
+    # K1's plain entry is off the main path (rle_stage takes the select
+    # entry): its count there is 0; K4 at 256 MiB is the main path's
+    # launch of K4
+    launches = {k: counts[k] for k in ("rle_pack", *CODEC_KERNELS)}
+    launches["decode@256MiB"] = counts["decode"]
     print("== phase 6: chunked bit packers")
     chunk_counts = chunk_path(corpus, dev, check)
     chunk_launches = require_launched(chunk_counts, CHUNK_KERNELS)

@@ -6,7 +6,10 @@ and exits non-zero without it. After one warm-up of each, it traces with
 ``torch.profiler`` (CPU and CUDA activities):
 
 1. the TBC2 codec: ``BlockCodec(device="cuda").compress`` and
-   ``decompress_device`` of ``bench.make_corpus(256 << 20)``;
+   ``decompress_device`` of ``bench.make_corpus(256 << 20)``, then
+   ``rle_stage`` alone on the same bytes as 16 device-resident batches
+   of 16 MiB (no histogram), so its device time per batch shows apart,
+   and K1's plain entry (``rle_pack_segments``) on the same batches;
 2. the chunked bit packers on the same bytes as 64 chunks of 4 MiB, as
    ``chip_smoke.py`` phase 6 runs them (K7, RLE tokens, K5, histogram,
    K6, Huffman tokens, K5);
@@ -89,11 +92,13 @@ def main() -> int:
     from bench import make_corpus
     from tudocomp_tpu_torch import BlockCodec, _build
     from tudocomp_tpu_torch.coders.huffman import HuffmanTable
+    from tudocomp_tpu_torch.models.blockcodec import BATCH_LANES, rle_stage
     from tudocomp_tpu_torch.ops import bitpack_chunks as bc
     from tudocomp_tpu_torch.ops.huffman import (
         huffman_encode_tokens, masked_histogram,
     )
     from tudocomp_tpu_torch.ops.rle import rle_tokens
+    from tudocomp_tpu_torch.ops.segpack import rle_pack_segments
 
     print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
@@ -109,6 +114,25 @@ def main() -> int:
            lambda: codec.decompress_device(container))
 
     dev = torch.device("cuda")
+    rows = torch.from_numpy(corpus.reshape(-1, 2048)).to(dev)
+    seg_lens = torch.full((rows.shape[0],), 2048, dtype=torch.int32,
+                          device=dev)
+
+    def stage1():
+        for lo in range(0, rows.shape[0], BATCH_LANES):
+            rle_stage(rows[lo:lo + BATCH_LANES], seg_lens[lo:lo + BATCH_LANES],
+                      offset=0, hist_rows=None)
+
+    traced(f"rle_stage alone, {rows.shape[0] // BATCH_LANES} batches of "
+           f"{BATCH_LANES} segments", stage1)
+
+    def k1():
+        for lo in range(0, rows.shape[0], BATCH_LANES):
+            rle_pack_segments(rows[lo:lo + BATCH_LANES],
+                              seg_lens[lo:lo + BATCH_LANES])
+
+    traced("K1 rle_pack_segments alone, same batches", k1)
+
     data = torch.from_numpy(corpus.reshape(CHUNKS, -1)).to(dev)
     c, n = data.shape
     lengths = torch.full((c,), n, dtype=torch.int32, device=dev)

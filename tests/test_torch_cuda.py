@@ -22,12 +22,14 @@ from tudocomp_tpu_torch.ops.bitpack_chunks import (
 from tudocomp_tpu_torch.ops.hist import (
     histogram_words, histogram_words_plain,
 )
+from tudocomp_tpu_torch.io.bitio import pack_tokens
 from tudocomp_tpu_torch.ops.hufdec import (
     decode_segments, decode_segments_plain,
 )
+from tudocomp_tpu_torch.ops.rle import bytes_from_words
 from tudocomp_tpu_torch.ops.segpack import (
     huffman_pack_segments, huffman_pack_segments_plain, rle_pack_segments,
-    rle_pack_segments_plain,
+    rle_pack_segments_plain, rle_select_segments, rle_select_segments_plain,
 )
 from tudocomp_tpu_torch.probes import ablate, floor, place
 
@@ -279,3 +281,206 @@ def test_place_matches_plain(cuda, strategy, stride, nc):
     (rows,) = _to(cuda, _rows(19, nc)[0])
     _equal(place.place_tokens(rows, strategy=strategy, stride=stride),
            place.place_tokens_plain(rows, stride=stride))
+
+
+def _edge_rows(seed: int):
+    """``_rows`` with K1's edge cases added: lengths 0, 1, 2047 and 2048
+    (garbage past each), a stream just over its length (the escape) and
+    one just under it, and runs whose vbyte takes two bytes."""
+    rows, lens = _rows(seed, nc=45)
+    lens[2:6] = (0, 1, 2047, 2048)
+    rows[6, 40:] = np.arange(SEG - 40) % 200 + 50
+    rows[7] = rows[6]
+    rows[6, :40] = np.repeat(np.arange(20, dtype=np.uint8) * 2 + 1, 2)
+    rows[7, :57] = np.repeat(np.arange(19, dtype=np.uint8) * 2 + 1, 3)
+    rows[7, 57:61] = 250
+    lens[6:8] = 1000  # streams of 1020 and 999 bytes
+    rows[8] = np.repeat(np.arange(8, dtype=np.uint8), 256)
+    lens[8] = SEG
+    return rows, lens
+
+
+def _unaligned16(rows: torch.Tensor) -> torch.Tensor:
+    """A copy of ``rows`` whose data starts 8 bytes past a 16-byte
+    boundary (K1's 8-byte load path)."""
+    buf = torch.empty(rows.numel() + 16, dtype=torch.uint8,
+                      device=rows.device)
+    skip = (8 - buf.data_ptr()) % 16
+    out = buf[skip : skip + rows.numel()].view(rows.shape)
+    out.copy_(rows)
+    assert out.data_ptr() % 16 == 8
+    return out
+
+
+@pytest.mark.parametrize("aligned", [True, False])
+@pytest.mark.parametrize("offset", [0, 125])
+def test_rle_pack_and_select_edges_match_plain(cuda, offset, aligned):
+    rows, lens = _to(cuda, *_edge_rows(offset))
+    if not aligned:
+        rows = _unaligned16(rows)
+    _equal(rle_pack_segments(rows, lens, offset=offset),
+           rle_pack_segments_plain(rows, lens, offset=offset))
+    got = rle_select_segments(rows, lens, offset=offset)
+    _equal(got, rle_select_segments_plain(rows, lens, offset=offset))
+    raw = got[2].cpu()
+    assert raw[6] and not raw[7] and raw.any() and not raw.all()
+    assert got[1][6:8].tolist() == [1000, 999]
+
+
+def test_rle_select_is_rle_stage_on_the_card(cuda):
+    from tudocomp_tpu_torch.models.blockcodec import rle_stage
+
+    rows, lens = _edge_rows(3)
+    for c, n in enumerate(lens):
+        rows[c, n:] = 0  # as split_segments pads
+    r, ln = _to(cuda, rows, lens)
+    before = rle_select_segments.launches
+    sel, counts, raw, _ = rle_stage(r, ln, offset=0, hist_rows=None)
+    assert rle_select_segments.launches == before + 1
+    words, rle_lens = rle_pack_segments_plain(*_to("cpu", rows, lens))
+    want_raw = rle_lens > torch.from_numpy(lens)
+    assert torch.equal(raw.cpu(), want_raw)
+    own = torch.from_numpy(rows.view(">u4").astype(np.uint32).view(np.int32))
+    assert torch.equal(sel.cpu(), torch.where(want_raw[:, None], own, words))
+
+
+def _decode_args(dev, container: bytes, codec, shift: int = 0):
+    """K4's inputs for ``container`` placed ``shift`` bytes into the
+    flat array (every payload moves by ``shift`` mod 16)."""
+    table, off, orig_len, counts, flags, poff, pbytes = codec._parse(
+        container)
+    flat = np.concatenate([np.full(shift, 0xEE, np.uint8),
+                           np.frombuffer(container, np.uint8)])
+    t = device_tables(table, dev)
+    args = _to(dev, flat, poff.astype(np.int64) + shift,
+               pbytes.astype(np.int64), counts.astype(np.int32),
+               flags.astype(np.uint8))
+    return args + [t["thresh"], t["offs"], t["symbols"]], t["fast"], off, \
+        orig_len
+
+
+def _decode_equal(args, fast, offset, orig_len):
+    got = decode_segments(*args, offset=offset, orig_len=orig_len, fast=fast)
+    want = decode_segments_plain(*args, offset=offset, orig_len=orig_len)
+    assert want.numel() == orig_len  # every segment decodes in full
+    assert torch.equal(got, want)
+    return got
+
+
+@pytest.mark.parametrize("offset", [0, 125])
+def test_decode_every_payload_offset_mod_16(cuda, offset):
+    rows, lens = _edge_rows(21 + offset)
+    data = b"".join(r[:n].tobytes() for r, n in zip(rows, lens))[:-333]
+    codec = BlockCodec(device="cpu", offset=offset)
+    container = codec.compress(data)
+    flags = codec._parse(container)[4]
+    assert {0, 1, 2, 3} <= set(flags.tolist())  # both escapes, alone and
+    for shift in range(16):                     # together
+        args, fast, off, n = _decode_args(cuda, container, codec, shift)
+        got = _decode_equal(args, fast, off, n)
+        assert got.cpu().numpy().tobytes() == data
+
+
+def _fibonacci_table() -> HuffmanTable:
+    fib = [1, 1]
+    while len(fib) < 40:
+        fib.append(fib[-1] + fib[-2])
+    hist = np.ones(256, np.int64)
+    hist[:40] = fib[::-1]
+    return HuffmanTable.from_counts(hist, max_len=16, min_len=3)
+
+
+def _hand_frames(table, offset: int, cut: bool = False):
+    """Frames built from symbol streams: RLE streams of the port's plain
+    K1 (2-byte vbytes included), a hand-made 3-byte vbyte, rle_raw and
+    huff_raw segments, a short last segment; ``cut`` drops the last 9
+    payload bytes of the rle_raw frames at least 200 bytes narrower than
+    the widest (zeros past the cut decode to bytes of the segment's full
+    length, and the plain version's feed, as wide as the widest payload,
+    still holds the reads)."""
+    rng = np.random.default_rng(offset)
+    rows = rng.integers(0, 256, (9, SEG), dtype=np.uint8)
+    rows[1] = np.repeat(rng.integers(0, 40, SEG, dtype=np.uint8),
+                        rng.integers(1, 300, SEG))[:SEG]
+    rows[2] = rng.integers(0, 3, SEG)
+    rows[3] = np.repeat(np.arange(4, dtype=np.uint8), 512)
+    lens = np.full(9, SEG, np.int32)
+    words, rle_lens = rle_pack_segments_plain(*_to("cpu", rows, lens),
+                                              offset=offset)
+    streams = bytes_from_words(words, SEG).numpy()
+    segs = []
+    for c in range(8):
+        rle_raw = c in (0, 5) or int(rle_lens[c]) > SEG
+        syms = rows[c] if rle_raw else streams[c, : int(rle_lens[c])]
+        segs.append((syms, rle_raw, c == 5 or c == 6))
+    # a run of 12 written with a 3-byte vbyte of v = offset + 10, then
+    # literals with no equal neighbours
+    v = offset + 10
+    three = np.array([9, 9, 0x80 | (v & 0x7F), 0x80 | (v >> 7), 0], np.uint8)
+    literals = (np.arange(SEG - 12) % 200 + 20).astype(np.uint8)
+    segs.append((np.concatenate([three, literals]), False, False))
+    flat, poff, pbytes, counts, flags = bytearray(b"\x01"), [], [], [], []
+    for syms, rle_raw, huff_raw in segs:
+        if huff_raw:
+            payload = syms.tobytes()
+        else:
+            payload = pack_tokens(table.sym_code[syms].astype(np.uint32),
+                                  table.sym_len[syms])[0].tobytes()
+        poff.append(len(flat))
+        pbytes.append(len(payload))
+        counts.append(syms.size)
+        flags.append(2 * rle_raw + huff_raw)
+        flat += payload + bytes(len(poff) % 5)
+    pbytes, flags = np.array(pbytes), np.array(flags, np.uint8)
+    if cut:
+        narrow = (flags & 2).astype(bool) & (pbytes < pbytes.max() - 200)
+        assert narrow.sum() >= 2
+        pbytes[narrow] -= 9
+    return (np.frombuffer(bytes(flat), np.uint8).copy(), np.array(poff),
+            pbytes, np.array(counts, np.int32), flags)
+
+
+@pytest.mark.parametrize("cut", [False, True])
+@pytest.mark.parametrize("offset", [0, 125])
+def test_decode_long_codes_and_hand_frames(cuda, offset, cut):
+    table = _fibonacci_table()
+    assert table.sym_len.max() == 16
+    flat, poff, pbytes, counts, flags = _hand_frames(table, offset, cut)
+    t = device_tables(table, cuda)
+    args = _to(cuda, flat, poff.astype(np.int64), pbytes.astype(np.int64),
+               counts, flags) + [t["thresh"], t["offs"], t["symbols"]]
+    orig_len = SEG * (len(counts) - 1) + 1000  # a short last segment
+    _decode_equal(args, t["fast"], offset, orig_len)
+    # nseg 1, 7 and 9 (not a multiple of the 64-thread block)
+    for nseg in (1, 7):
+        sub = [a[:nseg] if 1 <= i <= 4 else a for i, a in enumerate(args)]
+        _decode_equal(sub, t["fast"], offset, SEG * nseg)
+
+
+def test_decode_segment_counts_across_blocks(cuda):
+    rows, lens = _rows(29, nc=131)  # 2 full 64-thread blocks and 3 more
+    lens[:] = SEG
+    data = rows.tobytes()[:-5]
+    codec = BlockCodec(device="cpu")
+    args, fast, off, n = _decode_args(cuda, codec.compress(data), codec, 3)
+    assert _decode_equal(args, fast, off, n).cpu().numpy().tobytes() == data
+    assert torch.equal(decode_segments(*args, offset=off, orig_len=n),
+                       decode_segments(*args, offset=off, orig_len=n,
+                                       fast=fast))
+
+
+@pytest.mark.parametrize("alphabet", [64, 256])
+def test_decode_warps_of_rle_raw_segments(cuda, alphabet):
+    """Noise that RLE would expand: every segment takes rle_raw (and,
+    for 256 symbols, huff_raw too), so whole warps take K4's loop
+    without the RLE machine."""
+    rng = np.random.default_rng(alphabet)
+    data = rng.integers(0, alphabet, 70 * SEG - 100, dtype=np.uint8).tobytes()
+    codec = BlockCodec(device="cpu")
+    container = codec.compress(data)
+    flags = codec._parse(container)[4]
+    assert (flags == (3 if alphabet == 256 else 2)).all()
+    for shift in (0, 5):
+        args, fast, off, n = _decode_args(cuda, container, codec, shift)
+        got = _decode_equal(args, fast, off, n)
+        assert got.cpu().numpy().tobytes() == data

@@ -44,13 +44,16 @@ _L = ctypes.c_int64
 _SIGNATURES = {
     # rows, lens, words_out, rle_lens_out, nc, offset, stream
     "tdc_rle_pack": [_P, _P, _P, _P, _I, _I, _P],
+    # rows, lens, sel_out, counts_out, rle_raw_out, nc, offset, stream
+    "tdc_rle_select": [_P, _P, _P, _P, _P, _I, _I, _P],
     # words_in, counts, sym_code, sym_len, words_out, bits_out, nc, stream
     "tdc_huff_pack": [_P, _P, _P, _P, _P, _P, _I, _P],
     # words, lens, hist_out, rows, stream
     "tdc_hist": [_P, _P, _P, _I, _P],
-    # flat, poff, pbytes, counts, flags, thresh, offs, symbols, out,
-    # nseg, flat_len, orig_len, offset, stream
-    "tdc_hufdec": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _L, _L, _I, _P],
+    # flat, poff, pbytes, counts, flags, thresh, offs, symbols, fast,
+    # out, nseg, flat_len, orig_len, offset, stream
+    "tdc_hufdec": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _L, _L, _I,
+                   _P],
     # values, lens, words_out, bits_out, scratch, chunks, n, cap, stream
     "tdc_pack_tokens_chunks": [_P, _P, _P, _P, _P, _I, _I, _I, _P],
     # data, lengths, sym_code, sym_len, words_out, bits_out, scratch,

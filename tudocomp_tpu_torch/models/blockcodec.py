@@ -6,9 +6,10 @@ format (described there) is the state the two packages share, and a
 container from either package decodes in the other. Per 2048-byte
 segment:
 
-- ``rle_stage``: RLE pack (K1), the ``rle_raw`` escape (RLE would
-  expand: keep the input bytes) and the table histogram (K3) over a
-  1-in-8 sample of the first ``HIST_SEGS`` segments;
+- ``rle_stage``: RLE pack with the ``rle_raw`` escape (RLE would
+  expand: keep the input bytes) in one kernel (K1's select entry), and
+  the table histogram (K3) over a 1-in-8 sample of the first
+  ``HIST_SEGS`` segments;
 - the host builds the canonical table (``coders/huffman.py``);
 - ``huff_stage``: Huffman pack (K2) and the ``huff_raw`` escape (coding
   would not shrink: keep the stream bytes);
@@ -33,9 +34,8 @@ from tudocomp_tpu_torch.coders.huffman import HuffmanTable
 from tudocomp_tpu_torch.io.bitio import BitReader, BitWriter
 from tudocomp_tpu_torch.ops.hist import histogram_words
 from tudocomp_tpu_torch.ops.hufdec import SEG, decode_segments, decoder_tables
-from tudocomp_tpu_torch.ops.rle import be_words_from_bytes
 from tudocomp_tpu_torch.ops.segpack import (
-    huffman_pack_segments, rle_pack_segments,
+    huffman_pack_segments, rle_select_segments,
 )
 from tudocomp_tpu_torch.utils.vbyte import (
     encode_vbyte_array, read_vbyte, write_vbyte,
@@ -74,11 +74,10 @@ def rle_stage(seg_rows, seg_lens, *, offset: int, hist_rows: slice | None):
     hist)``: the big-endian words of the escape-selected stream (the
     RLE stream, or the input bytes where RLE would expand), its length,
     the escape flag, and the i32[256] histogram of the selected streams
-    of the rows ``hist_rows`` (``None``: no histogram)."""
-    words, rle_lens = rle_pack_segments(seg_rows, seg_lens, offset=offset)
-    rle_raw = rle_lens > seg_lens
-    sel = torch.where(rle_raw[:, None], be_words_from_bytes(seg_rows), words)
-    counts = torch.where(rle_raw, seg_lens, rle_lens)
+    of the rows ``hist_rows`` (``None``: no histogram). Bytes past
+    ``seg_lens`` never reach ``sel``."""
+    sel, counts, rle_raw = rle_select_segments(seg_rows, seg_lens,
+                                               offset=offset)
     hist = None
     if hist_rows is not None:
         hist = histogram_words(
@@ -357,7 +356,7 @@ class BlockCodec:
             _upload(counts.astype(np.int32), dev),
             _upload(flags.astype(np.uint8), dev),
             t["thresh"], t["offs"], t["symbols"],
-            offset=offset, orig_len=orig_len,
+            offset=offset, orig_len=orig_len, fast=t["fast"],
         ).cpu().numpy().tobytes()
         self.timings = {"parse": t1 - t0,
                         "decode": time.perf_counter() - t1}

@@ -1,7 +1,8 @@
-"""Device ops of the port. The seven kernels — K1–K4 of the TBC2 path,
-K5–K7 of the chunked bit packers — are each a wrapper that launches a
-hand-written CUDA kernel on CUDA tensors and runs its plain torch version
-on CPU tensors. The launch counts also cover the stage probes'
+"""Device ops of the port. The kernels — K1–K4 of the TBC2 path (K1 with
+a second entry that fuses the codec's escape select), K5–K7 of the
+chunked bit packers — are each a wrapper that launches a hand-written
+CUDA kernel on CUDA tensors and runs its plain torch version on CPU
+tensors. The launch counts also cover the stage probes'
 variants (``tudocomp_tpu_torch.probes``)."""
 
 from tudocomp_tpu_torch.ops.bitpack_chunks import (
@@ -10,7 +11,7 @@ from tudocomp_tpu_torch.ops.bitpack_chunks import (
 from tudocomp_tpu_torch.ops.hist import histogram_words
 from tudocomp_tpu_torch.ops.hufdec import decode_segments, decoder_tables
 from tudocomp_tpu_torch.ops.segpack import (
-    huffman_pack_segments, rle_pack_segments,
+    huffman_pack_segments, rle_pack_segments, rle_select_segments,
 )
 # after the ops it uses: the probes import ops.segpack
 from tudocomp_tpu_torch.probes import COUNTERS as _PROBE_COUNTERS
@@ -18,6 +19,7 @@ from tudocomp_tpu_torch.probes import COUNTERS as _PROBE_COUNTERS
 #: the kernel wrappers; each counts its launches in ``.launches``
 KERNELS = {
     "rle_pack": rle_pack_segments,
+    "rle_select": rle_select_segments,
     "huffman_pack": huffman_pack_segments,
     "histogram": histogram_words,
     "decode": decode_segments,
@@ -27,7 +29,7 @@ KERNELS = {
 }
 
 #: the kernels of the TBC2 codec's path, and of the chunked packers'
-CODEC_KERNELS = ("rle_pack", "huffman_pack", "histogram", "decode")
+CODEC_KERNELS = ("rle_select", "huffman_pack", "histogram", "decode")
 CHUNK_KERNELS = ("pack_tokens_chunks", "pack_bytes_huffman_chunks",
                  "rle_pack_chunks")
 #: the stage probes' variants (P1–P4), each with its own launch count
@@ -49,5 +51,5 @@ __all__ = [
     "decode_segments", "decoder_tables", "histogram_words",
     "huffman_pack_segments", "launch_counts", "pack_bytes_huffman_chunks",
     "pack_tokens_chunks", "reset_launches", "rle_pack_chunks",
-    "rle_pack_segments",
+    "rle_pack_segments", "rle_select_segments",
 ]

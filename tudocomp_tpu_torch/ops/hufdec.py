@@ -15,7 +15,9 @@ Per segment: ``counts`` symbols, each of canonical length
 ``symbols[prefix + offs[len - 1]]``; ``huff_raw`` segments hold 8-bit
 verbatim symbols. The symbols then run through the reference RLE record
 machine (``hufdec_pallas.py:146-177``), which ``rle_raw`` segments
-bypass (every symbol is one output byte).
+bypass (every symbol is one output byte). The kernel resolves codes of
+at most ``FAST_BITS`` bits with one lookup in :func:`fast_decode_table`,
+built on the host beside the thresholds.
 """
 
 from __future__ import annotations
@@ -27,19 +29,23 @@ from tudocomp_tpu_torch import _build
 
 SEG = 2048  # output bytes per segment
 
+#: window bits of the one-lookup decode table (codes of at most this
+#: many bits resolve with one load; longer ones take the thresholds)
+FAST_BITS = 10
+
 
 def decoder_tables(table) -> dict:
     """Decode-side arrays of a ``HuffmanTable`` (or ``None``): ``thresh``
     i32[16] (16-bit-scaled firstcode thresholds, non-increasing),
-    ``offs`` i32[16] (symbol index = prefix + offs[len - 1]) and
-    ``symbols`` u8[256] (the canonically sorted symbols, zero padded).
-    ``None`` (no table: every segment is ``huff_raw``) gives zeros."""
+    ``offs`` i32[16] (symbol index = prefix + offs[len - 1]),
+    ``symbols`` u8[256] (the canonically sorted symbols, zero padded)
+    and ``fast`` i16[1024], their :func:`fast_decode_table`. ``None``
+    (no table: every segment is ``huff_raw``) gives zero thresholds."""
     thresh = np.zeros(16, np.int64)
     offs = np.zeros(16, np.int64)
     symbols = np.zeros(256, np.uint8)
     if table is None:
-        return {"thresh": thresh.astype(np.int32),
-                "offs": offs.astype(np.int32), "symbols": symbols}
+        return _with_fast(thresh, offs, symbols)
     longest = table.longest
     if not 1 <= longest <= 16:
         raise ValueError(f"device decode needs code lengths <= 16: {longest}")
@@ -52,21 +58,52 @@ def decoder_tables(table) -> dict:
     for l in range(1, longest + 1):
         offs[l - 1] = start_of_len[l - 1] - int(fc[l - 1])
     symbols[: table.symbols.size] = table.symbols
-    return {"thresh": thresh.astype(np.int32),
-            "offs": offs.astype(np.int32), "symbols": symbols}
+    return _with_fast(thresh, offs, symbols)
+
+
+def _with_fast(thresh, offs, symbols) -> dict:
+    arrays = {"thresh": thresh.astype(np.int32),
+              "offs": offs.astype(np.int32), "symbols": symbols}
+    fast = fast_decode_table(*(torch.from_numpy(a) for a in arrays.values()))
+    return {**arrays, "fast": fast.numpy()}
+
+
+def fast_decode_table(thresh, offs, symbols) -> torch.Tensor:
+    """K4's one-lookup table: for each ``FAST_BITS``-bit window prefix
+    ``p``, ``symbol | length << 8`` (i16) when every 16-bit window that
+    starts with ``p`` has the same code length under the threshold
+    compare and that length is at most ``FAST_BITS``; else 0 (decode the
+    window with the thresholds). The length is a non-increasing function
+    of the window, so equal lengths at the prefix's lowest and highest
+    window hold for all windows between, whatever ``thresh`` is."""
+    tail = 16 - FAST_BITS
+    lo = torch.arange(1 << FAST_BITS, device=thresh.device) << tail
+    t = thresh.long()
+
+    def length(win):
+        return (1 + (win[:, None] < t[None, :]).sum(dim=1)).clamp(max=16)
+
+    ln = length(lo)
+    ok = (ln == length(lo | ((1 << tail) - 1))) & (ln <= FAST_BITS)
+    idx = ((lo >> (16 - ln)) + offs.long()[ln - 1]).clamp(0, 255)
+    return torch.where(ok, symbols.long()[idx] | (ln << 8), 0).to(torch.int16)
 
 
 def decode_segments(flat, poff, pbytes, counts, flags, thresh, offs,
-                    symbols, *, offset: int, orig_len: int):
+                    symbols, *, offset: int, orig_len: int, fast=None):
     """Decode every segment of a parsed TBC2 container.
 
     ``flat u8[N]``: the container; ``poff``/``pbytes`` i64[nseg]: each
     payload's offset and size in it; ``counts`` i32[nseg] symbols per
     segment (at most SEG); ``flags`` u8[nseg] (bit 0 ``huff_raw``, bit 1
-    ``rle_raw``); ``thresh``/``offs`` i32[16] and ``symbols`` u8[256]
-    from :func:`decoder_tables`. Returns the ``u8[orig_len]`` output.
-    CUDA tensors launch ``csrc/hufdec.cu``; CPU tensors take
-    :func:`decode_segments_plain`.
+    ``rle_raw``); ``thresh``/``offs`` i32[16], ``symbols`` u8[256] and
+    ``fast`` i16[1024] from :func:`decoder_tables` (``None``: made here
+    by :func:`fast_decode_table`). Returns the ``u8[orig_len]`` output.
+    CUDA tensors launch ``csrc/hufdec.cu``, which leaves a segment that
+    decodes short zero up to its length; CPU tensors take
+    :func:`decode_segments_plain`, which needs no ``fast`` table and
+    concatenates the decoded bytes. The two agree wherever every segment
+    decodes in full, as in every container the codec writes.
     """
     nseg = counts.shape[0]
     _build.check(flat, torch.uint8, (flat.shape[0],), "flat")
@@ -83,7 +120,12 @@ def decode_segments(flat, poff, pbytes, counts, flags, thresh, offs,
     if not _build.on_cuda(*tensors):
         return decode_segments_plain(*tensors, offset=offset,
                                      orig_len=orig_len)
-    out = torch.zeros(nseg * SEG, dtype=torch.uint8, device=flat.device)
+    if fast is None:
+        fast = fast_decode_table(thresh, offs, symbols)
+    _build.check(fast, torch.int16, (1 << FAST_BITS,), "fast")
+    tensors += (fast,)
+    # the kernel writes every byte of [0, orig_len)
+    out = torch.empty(nseg * SEG, dtype=torch.uint8, device=flat.device)
     if nseg:
         _build.launch(
             "tdc_hufdec", *(t.data_ptr() for t in tensors), out.data_ptr(),

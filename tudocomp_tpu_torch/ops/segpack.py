@@ -4,9 +4,11 @@ Counterparts of ``tudocomp_tpu/ops/segpack_pallas.py``:
 ``rle_pack_segments_w4`` (:1180) and ``huffman_pack_segments_w4``
 (:1238), with the w4 contract kept at the public functions: streams
 travel between stages as big-endian u32 words, ``[NC, 512]`` per batch
-(held as int32). Each wrapper launches its hand-written CUDA kernel
-(``csrc/rle_pack.cu``, ``csrc/huff_pack.cu``) on CUDA tensors and runs
-its plain torch version on CPU tensors; there is no other route.
+(held as int32). :func:`rle_select_segments` is K1 with the codec's
+``rle_raw`` escape select fused in (``rle_stage`` in
+``models/blockcodec.py``). Each wrapper launches its hand-written CUDA
+kernel (``csrc/rle_pack.cu``, ``csrc/huff_pack.cu``) on CUDA tensors and
+runs its plain torch version on CPU tensors; there is no other route.
 """
 
 from __future__ import annotations
@@ -35,13 +37,10 @@ def rle_pack_segments(rows: torch.Tensor, lens: torch.Tensor, *,
     the stream's first 2048 bytes as big-endian words, zero past the
     stream, and the FULL stream length (which may exceed 2048; the
     caller's ``rle_raw`` escape needs it)."""
-    _check_offset(offset)
-    nc = rows.shape[0]
-    _build.check(rows, torch.uint8, (nc, SEG), "rows")
-    _build.check(lens, torch.int32, (nc,), "lens")
-    _build.check_aligned(rows, "rows", 8)
+    _check_rle_args(rows, lens, offset)
     if not _build.on_cuda(rows, lens):
         return rle_pack_segments_plain(rows, lens, offset=offset)
+    nc = rows.shape[0]
     words = torch.empty(nc, STREAM_WORDS, dtype=torch.int32,
                         device=rows.device)
     rle_lens = torch.empty(nc, dtype=torch.int32, device=rows.device)
@@ -56,6 +55,58 @@ def rle_pack_segments(rows: torch.Tensor, lens: torch.Tensor, *,
 
 
 rle_pack_segments.launches = 0
+
+
+def _check_rle_args(rows, lens, offset: int) -> None:
+    _check_offset(offset)
+    nc = rows.shape[0]
+    _build.check(rows, torch.uint8, (nc, SEG), "rows")
+    _build.check(lens, torch.int32, (nc,), "lens")
+    _build.check_aligned(rows, "rows", 8)
+
+
+def rle_select_segments(rows: torch.Tensor, lens: torch.Tensor, *,
+                        offset: int = 0):
+    """K1 with the ``rle_raw`` escape select: per segment of ``rows
+    u8[NC, 2048]`` masked to ``lens i32[NC]``, the RLE stream, or the
+    segment's own bytes where the stream would be longer than ``lens``.
+    Returns ``(sel i32[NC, 512], counts i32[NC], rle_raw bool[NC])``:
+    the selected stream as big-endian words, zero past ``counts`` (the
+    RLE stream's length, or ``lens`` on the escape), and the escape
+    flag."""
+    _check_rle_args(rows, lens, offset)
+    if not _build.on_cuda(rows, lens):
+        return rle_select_segments_plain(rows, lens, offset=offset)
+    nc = rows.shape[0]
+    sel = torch.empty(nc, STREAM_WORDS, dtype=torch.int32,
+                      device=rows.device)
+    counts = torch.empty(nc, dtype=torch.int32, device=rows.device)
+    rle_raw = torch.empty(nc, dtype=torch.bool, device=rows.device)
+    if nc:
+        _build.launch(
+            "tdc_rle_select", rows.data_ptr(), lens.data_ptr(),
+            sel.data_ptr(), counts.data_ptr(), rle_raw.data_ptr(), nc,
+            offset, device=rows.device,
+        )
+        rle_select_segments.launches += 1
+    return sel, counts, rle_raw
+
+
+rle_select_segments.launches = 0
+
+
+def rle_select_segments_plain(rows, lens, *, offset: int = 0):
+    """Plain torch K1 + select: :func:`rle_pack_segments_plain`, then
+    the input's own words where the stream is longer than ``lens``. The
+    rows are masked to ``lens`` first, as ``split_segments`` pads them,
+    so the result never depends on the padding."""
+    words, rle_lens = rle_pack_segments_plain(rows, lens, offset=offset)
+    rle_raw = rle_lens > lens
+    live = (torch.arange(SEG, device=rows.device)[None, :]
+            < lens[:, None])
+    own = be_words_from_bytes(torch.where(live, rows, 0))
+    sel = torch.where(rle_raw[:, None], own, words)
+    return sel, torch.where(rle_raw, lens, rle_lens), rle_raw
 
 
 def rle_pack_segments_plain(rows, lens, *, offset: int = 0):
