@@ -7,14 +7,16 @@ It needs one CUDA device and exits non-zero without one. Phases:
 1. toolchain: torch, CUDA, nvcc, Triton, the card and its power limit,
    and the build of the CUDA kernels from ``tudocomp_tpu_torch/csrc``;
 2. each kernel (K1 RLE pack, K1's select entry with the ``rle_raw``
-   escape, K2 Huffman pack, K3 histogram, K4 decode) against its plain
-   torch version on the card, at the shapes of the main path's first
-   16 MiB batch: exact equality, both times (CUDA events, after a
-   warm-up);
+   escape, K3 histogram, K3 on the 1-in-8 sample read in place, K2
+   Huffman pack, K2's select entry with the ``huff_raw`` escape, K4
+   decode) against its plain torch version on the card, at the shapes
+   of the main path's first 16 MiB batch: exact equality, both times
+   (CUDA events, after a warm-up);
 3. the main path at 256 MiB: ``BlockCodec(device=cuda).compress`` of
    ``bench.make_corpus(256 << 20)`` and ``decompress_device``; the
    output must equal the input, and the port's host decoder must
-   restore it from the same container; then K4 alone at the shape
+   restore it from the same container; the shares of segments that
+   take each escape; then K4 alone at the shape
    ``decompress_device`` launches it, one launch over the whole
    container, against its plain version and the input bytes;
 4. a 20 MiB slice (past the 16 MiB histogram cap): the CUDA container
@@ -184,16 +186,29 @@ def kernels_vs_plain(corpus, dev, check: Checker) -> None:
         nbytes=in_bytes + 4 * nseg + 4 * words_and_counts(nseg, 512) + nseg,
         nops=OPS_PER_ELEM * in_bytes,
     )
-    sub, subc = sel[::8].contiguous(), counts[::8].contiguous()
+    sample = codec._hist_rows(0, nseg, True)  # the 1024 sampled rows
+    sub, subc = sel[sample].contiguous(), counts[sample].contiguous()
     live = segpack.bytes_from_words(sub, segpack.SEG)[
         torch.arange(segpack.SEG, device=dev)[None, :] < subc[:, None]
     ].long()
     sampled = int(subc.sum())
-    (h,) = check(
+    check(
         "histogram",
         lambda: hist.histogram_words(sub, subc),
         lambda: hist.histogram_words_plain(sub, subc),
         nbytes=sampled + 4 * subc.numel() + 4 * 256,
+        nops=sampled,
+        library=lambda: torch.bincount(live, minlength=256),
+    )
+    # the rows entry adds into the caller's histogram: a zeroed one each
+    # call (its fill is in the kernel's time)
+    (h,) = check(
+        "histogram_rows",
+        lambda: hist.histogram_rows(
+            sel, counts, sample,
+            torch.zeros(256, dtype=torch.int64, device=dev)),
+        lambda: hist.histogram_rows_plain(sel, counts, sample),
+        nbytes=sampled + 4 * subc.numel() + 8 * 256,
         nops=sampled,
         library=lambda: torch.bincount(live, minlength=256),
     )
@@ -210,7 +225,22 @@ def kernels_vs_plain(corpus, dev, check: Checker) -> None:
         + 4 * words_and_counts(nseg, 512),
         nops=OPS_PER_ELEM * stream,
     )
-    out, bits, huff_raw = huff_stage(sel, counts, code, length)
+    out, bits, huff_raw = check(
+        "huff_select",
+        lambda: segpack.huffman_select_segments(sel, counts, code, length),
+        lambda: segpack.huffman_select_segments_plain(sel, counts, code,
+                                                      length),
+        # + the escape flag (one byte a segment)
+        nbytes=stream + 4 * nseg + 2 * 4 * 256
+        + 4 * words_and_counts(nseg, 512) + nseg,
+        nops=OPS_PER_ELEM * stream,
+    )
+    print(f"   huff_raw share of the batch's segments: "
+          f"{float(huff_raw.float().mean()):.4f}")
+    for a, b in zip((out, bits, huff_raw),
+                    huff_stage(sel, counts, code, length)):
+        if not torch.equal(a, b):
+            raise AssertionError("huff_stage differs from K2's select entry")
     container = codec._assemble(
         len(data), table, counts.cpu().numpy(), rle_raw.cpu().numpy(),
         huff_raw.cpu().numpy(), out.cpu().numpy().view(np.uint32),
@@ -281,8 +311,11 @@ def main_path(corpus, dev, check: Checker) -> dict:
         raise AssertionError("host decode of the CUDA container differs")
     t_host = time.perf_counter() - t0
     gb = len(data) / 1e9
+    flags = codec._parse(container)[4]
     print(f"main path {len(data) // MIB} MiB: ratio "
-          f"{len(container) / len(data):.4f}")
+          f"{len(container) / len(data):.4f}; segments taking huff_raw "
+          f"{float((flags & 1).mean()):.4f}, rle_raw "
+          f"{float((flags >> 1 & 1).mean()):.4f}")
     print(f"  encode device stages {enc['encode']:.3f} s "
           f"({gb / enc['encode']:.3f} GB/s), assembly "
           f"{enc['assemble']:.3f} s")
@@ -409,10 +442,14 @@ SOURCES = {
                  "tudocomp_tpu/ops/segpack_pallas.py:1032"),
     "rle_select": ("tudocomp_tpu_torch/csrc/rle_pack.cu",
                    "tudocomp_tpu/ops/segpack_pallas.py:1032"),
-    "huffman_pack": ("tudocomp_tpu_torch/csrc/huff_pack.cu",
-                     "tudocomp_tpu/ops/segpack_pallas.py:957"),
     "histogram": ("tudocomp_tpu_torch/csrc/hist.cu",
                   "tudocomp_tpu/ops/hist_pallas.py:26"),
+    "histogram_rows": ("tudocomp_tpu_torch/csrc/hist.cu",
+                       "tudocomp_tpu/ops/hist_pallas.py:26"),
+    "huffman_pack": ("tudocomp_tpu_torch/csrc/huff_pack.cu",
+                     "tudocomp_tpu/ops/segpack_pallas.py:957"),
+    "huff_select": ("tudocomp_tpu_torch/csrc/huff_pack.cu",
+                    "tudocomp_tpu/ops/segpack_pallas.py:957"),
     "decode": ("tudocomp_tpu_torch/csrc/hufdec.cu",
                "tudocomp_tpu/ops/hufdec_pallas.py:74"),
     "decode@256MiB": ("tudocomp_tpu_torch/csrc/hufdec.cu",
@@ -586,10 +623,12 @@ def main() -> int:
 
     print("== phase 5: launch counts",
           json.dumps(require_launched(counts, CODEC_KERNELS)))
-    # K1's plain entry is off the main path (rle_stage takes the select
-    # entry): its count there is 0; K4 at 256 MiB is the main path's
-    # launch of K4
-    launches = {k: counts[k] for k in ("rle_pack", *CODEC_KERNELS)}
+    # K1's and K2's plain entries and K3's gathered form are off the
+    # main path (the stages take the select entries and the rows entry):
+    # their counts there are 0; K4 at 256 MiB is the main path's launch
+    # of K4
+    launches = {k: counts[k] for k in ("rle_pack", "huffman_pack",
+                                       "histogram", *CODEC_KERNELS)}
     launches["decode@256MiB"] = counts["decode"]
     print("== phase 6: chunked bit packers")
     chunk_counts = chunk_path(corpus, dev, check)

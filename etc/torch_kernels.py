@@ -1,5 +1,5 @@
 #!/usr/bin/env python3
-"""Card times of the TBC2 codec's RLE stage and decode kernel (K1, K4).
+"""Card times of the TBC2 codec's stages and kernels (K1-K4).
 
 Run from the root of a checkout: ``python3 etc/torch_kernels.py``. The
 package it times is the one under the current directory, so the same
@@ -14,6 +14,12 @@ per call after a warm-up):
 - K1 (``rle_pack_segments``) on the first 16 MiB batch of 8192 segments;
 - ``rle_stage`` on that batch without the histogram: K1, the ``rle_raw``
   escape select and the counts, i.e. the stage's device time per batch;
+- K3 (``histogram_words``) on that batch's 1024 sampled rows, gathered,
+  and ``rle_stage`` with the histogram of those rows (the gather, if
+  the stage makes one, included);
+- K2 (``huffman_pack_segments``) on the batch's escape-selected streams
+  with the table of its sample, and ``huff_stage`` on them: K2, the
+  ``huff_raw`` escape select and the bits;
 - K4 (``decode_segments``) on the container of that batch, and on the
   container of the whole 256 MiB in one launch, as ``decompress_device``
   runs it.
@@ -91,8 +97,13 @@ def main() -> int:
     import tudocomp_tpu_torch
     from bench import make_corpus
     from tudocomp_tpu_torch import BlockCodec, _build
-    from tudocomp_tpu_torch.models.blockcodec import rle_stage
-    from tudocomp_tpu_torch.ops.segpack import rle_pack_segments
+    from tudocomp_tpu_torch.models.blockcodec import (
+        device_tables, huff_stage, rle_stage,
+    )
+    from tudocomp_tpu_torch.ops.hist import histogram_words
+    from tudocomp_tpu_torch.ops.segpack import (
+        huffman_pack_segments, rle_pack_segments,
+    )
 
     card = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
@@ -120,6 +131,28 @@ def main() -> int:
         # + the escape flag
         "rle_stage_bound_ms": bound_ms(k1_bytes + nseg),
     }
+    sample = slice(0, nseg, 8)
+    sel, counts, _, hist = rle_stage(rows, lens, offset=0, hist_rows=sample)
+    sub, subc = sel[sample].contiguous(), counts[sample].contiguous()
+    live = int(subc.sum())
+    res["histogram_ms"] = time_ms(lambda: histogram_words(sub, subc), 20)
+    res["histogram_bound_ms"] = bound_ms(live + 4 * subc.numel() + 4 * 256)
+    res["rle_stage_hist_ms"] = time_ms(
+        lambda: rle_stage(rows, lens, offset=0, hist_rows=sample), 20)
+    t = device_tables(codec._table_from_hist(hist.cpu().numpy(), True), dev)
+    code, length = t["sym_code"], t["sym_len"]
+    stream = int(counts.sum())
+    # live stream bytes, counts and the table in; 512 words and the bits
+    # per segment out (+ the escape flag for huff_stage)
+    k2_bytes = stream + 4 * nseg + 2 * 4 * 256 + 4 * (512 * nseg + nseg)
+    res["huffman_pack_ms"] = time_ms(
+        lambda: huffman_pack_segments(sel, counts, code, length), 20)
+    res["huffman_pack_bound_ms"] = bound_ms(k2_bytes)
+    res["huff_stage_ms"] = time_ms(
+        lambda: huff_stage(sel, counts, code, length), 20)
+    res["huff_stage_bound_ms"] = bound_ms(k2_bytes + nseg)
+    res["huff_raw_share"] = float(
+        huff_stage(sel, counts, code, length)[2].float().mean())
     for tag, data in (("16MiB", batch), ("256MiB", corpus.tobytes())):
         call, nbytes = decode_case(codec, data, dev)
         res[f"decode_{tag}_ms"] = time_ms(call, 10)

@@ -1,15 +1,21 @@
 #!/usr/bin/env python3
 """Where the time goes in the torch port, on one NVIDIA GPU.
 
-Run from the repo root: ``python3 etc/torch_profile.py``. It needs CUDA
-and exits non-zero without it. After one warm-up of each, it traces with
-``torch.profiler`` (CPU and CUDA activities):
+Run from the repo root: ``python3 etc/torch_profile.py [all|stages]``
+(``stages``: only the per-stage traces of item 1, in a process of their
+own). It needs CUDA and exits non-zero without it. After one warm-up of
+each, it traces with ``torch.profiler`` (CPU and CUDA activities):
 
 1. the TBC2 codec: ``BlockCodec(device="cuda").compress`` and
    ``decompress_device`` of ``bench.make_corpus(256 << 20)``, then
    ``rle_stage`` alone on the same bytes as 16 device-resident batches
    of 16 MiB (no histogram), so its device time per batch shows apart,
    and K1's plain entry (``rle_pack_segments``) on the same batches;
+   ``huff_stage`` alone on those batches' escape-selected streams with
+   the codec's table; and the table histogram 16 times over the first
+   batch's 1024 sampled rows, once inside ``rle_stage`` (with whatever
+   copies the stage makes for it) and once as K3 alone on the gathered
+   rows (``histogram_words``);
 2. the chunked bit packers on the same bytes as 64 chunks of 4 MiB, as
    ``chip_smoke.py`` phase 6 runs them (K7, RLE tokens, K5, histogram,
    K6, Huffman tokens, K5);
@@ -85,6 +91,10 @@ def main() -> int:
     import numpy as np
     import torch
 
+    which = sys.argv[1] if len(sys.argv) > 1 else "all"
+    if which not in ("all", "stages"):
+        print(f"torch_profile: unknown part {which!r}", file=sys.stderr)
+        return 2
     if not torch.cuda.is_available():
         print("torch_profile: CUDA is not available", file=sys.stderr)
         return 1
@@ -92,7 +102,10 @@ def main() -> int:
     from bench import make_corpus
     from tudocomp_tpu_torch import BlockCodec, _build
     from tudocomp_tpu_torch.coders.huffman import HuffmanTable
-    from tudocomp_tpu_torch.models.blockcodec import BATCH_LANES, rle_stage
+    from tudocomp_tpu_torch.models.blockcodec import (
+        BATCH_LANES, device_tables, huff_stage, rle_stage,
+    )
+    from tudocomp_tpu_torch.ops.hist import histogram_words
     from tudocomp_tpu_torch.ops import bitpack_chunks as bc
     from tudocomp_tpu_torch.ops.huffman import (
         huffman_encode_tokens, masked_histogram,
@@ -108,10 +121,11 @@ def main() -> int:
     corpus = make_corpus(256 * MIB)
     data_bytes = corpus.tobytes()
     codec = BlockCodec(device="cuda")
-    container = codec.compress(data_bytes)
-    traced("codec compress 256 MiB", lambda: codec.compress(data_bytes))
-    traced("codec decompress_device 256 MiB",
-           lambda: codec.decompress_device(container))
+    if which == "all":
+        container = codec.compress(data_bytes)
+        traced("codec compress 256 MiB", lambda: codec.compress(data_bytes))
+        traced("codec decompress_device 256 MiB",
+               lambda: codec.decompress_device(container))
 
     dev = torch.device("cuda")
     rows = torch.from_numpy(corpus.reshape(-1, 2048)).to(dev)
@@ -132,6 +146,34 @@ def main() -> int:
                               seg_lens[lo:lo + BATCH_LANES])
 
     traced("K1 rle_pack_segments alone, same batches", k1)
+
+    sample = slice(0, BATCH_LANES, 8)
+    batches = [rle_stage(rows[lo:lo + BATCH_LANES],
+                         seg_lens[lo:lo + BATCH_LANES], offset=0,
+                         hist_rows=sample if lo == 0 else None)
+               for lo in range(0, rows.shape[0], BATCH_LANES)]
+    t = device_tables(codec._table_from_hist(batches[0][3].cpu().numpy(),
+                                             True), dev)
+
+    def stage2():
+        for sel, counts, _, _ in batches:
+            huff_stage(sel, counts, t["sym_code"], t["sym_len"])
+
+    traced(f"huff_stage alone, same {len(batches)} batches", stage2)
+    rows0, lens0 = rows[:BATCH_LANES], seg_lens[:BATCH_LANES]
+
+    def hist_in_stage():
+        for _ in range(16):
+            rle_stage(rows0, lens0, offset=0, hist_rows=sample)
+
+    traced("rle_stage with the 1024-row histogram, first batch, 16 times",
+           hist_in_stage)
+    sel0, counts0 = batches[0][0], batches[0][1]
+    sub, subc = sel0[sample].contiguous(), counts0[sample].contiguous()
+    traced("K3 histogram_words alone, the 1024 gathered rows, 16 times",
+           lambda: [histogram_words(sub, subc) for _ in range(16)])
+    if which == "stages":
+        return 0
 
     data = torch.from_numpy(corpus.reshape(CHUNKS, -1)).to(dev)
     c, n = data.shape

@@ -20,7 +20,8 @@ from tudocomp_tpu_torch.ops.bitpack_chunks import (
     rle_pack_chunks_plain,
 )
 from tudocomp_tpu_torch.ops.hist import (
-    histogram_words, histogram_words_plain,
+    histogram_rows, histogram_rows_plain, histogram_words,
+    histogram_words_plain,
 )
 from tudocomp_tpu_torch.io.bitio import pack_tokens
 from tudocomp_tpu_torch.ops.hufdec import (
@@ -28,10 +29,13 @@ from tudocomp_tpu_torch.ops.hufdec import (
 )
 from tudocomp_tpu_torch.ops.rle import bytes_from_words
 from tudocomp_tpu_torch.ops.segpack import (
-    huffman_pack_segments, huffman_pack_segments_plain, rle_pack_segments,
-    rle_pack_segments_plain, rle_select_segments, rle_select_segments_plain,
+    huffman_pack_segments, huffman_pack_segments_plain,
+    huffman_select_segments, huffman_select_segments_plain,
+    rle_pack_segments, rle_pack_segments_plain, rle_select_segments,
+    rle_select_segments_plain,
 )
 from tudocomp_tpu_torch.probes import ablate, floor, place
+from test_torch_k2_k3 import BATCHES, NAMES, select_case
 
 pytestmark = pytest.mark.cuda
 
@@ -300,15 +304,15 @@ def _edge_rows(seed: int):
     return rows, lens
 
 
-def _unaligned16(rows: torch.Tensor) -> torch.Tensor:
-    """A copy of ``rows`` whose data starts 8 bytes past a 16-byte
-    boundary (K1's 8-byte load path)."""
-    buf = torch.empty(rows.numel() + 16, dtype=torch.uint8,
-                      device=rows.device)
-    skip = (8 - buf.data_ptr()) % 16
-    out = buf[skip : skip + rows.numel()].view(rows.shape)
-    out.copy_(rows)
-    assert out.data_ptr() % 16 == 8
+def _unaligned(t: torch.Tensor, skip: int) -> torch.Tensor:
+    """A copy of ``t`` whose data starts ``skip`` bytes past a 16-byte
+    boundary (the kernels' narrower load paths)."""
+    n = t.numel() * t.element_size()
+    buf = torch.empty(n + 16, dtype=torch.uint8, device=t.device)
+    start = (skip - buf.data_ptr()) % 16
+    out = buf[start : start + n].view(t.dtype).view(t.shape)
+    out.copy_(t)
+    assert out.data_ptr() % 16 == skip
     return out
 
 
@@ -317,7 +321,7 @@ def _unaligned16(rows: torch.Tensor) -> torch.Tensor:
 def test_rle_pack_and_select_edges_match_plain(cuda, offset, aligned):
     rows, lens = _to(cuda, *_edge_rows(offset))
     if not aligned:
-        rows = _unaligned16(rows)
+        rows = _unaligned(rows, 8)
     _equal(rle_pack_segments(rows, lens, offset=offset),
            rle_pack_segments_plain(rows, lens, offset=offset))
     got = rle_select_segments(rows, lens, offset=offset)
@@ -362,7 +366,7 @@ def _decode_args(dev, container: bytes, codec, shift: int = 0):
 def _decode_equal(args, fast, offset, orig_len):
     got = decode_segments(*args, offset=offset, orig_len=orig_len, fast=fast)
     want = decode_segments_plain(*args, offset=offset, orig_len=orig_len)
-    assert want.numel() == orig_len  # every segment decodes in full
+    assert want.numel() == orig_len  # zeros past a short segment
     assert torch.equal(got, want)
     return got
 
@@ -390,14 +394,16 @@ def _fibonacci_table() -> HuffmanTable:
     return HuffmanTable.from_counts(hist, max_len=16, min_len=3)
 
 
-def _hand_frames(table, offset: int, cut: bool = False):
+def _hand_frames(table, offset: int, cut=False):
     """Frames built from symbol streams: RLE streams of the port's plain
     K1 (2-byte vbytes included), a hand-made 3-byte vbyte, rle_raw and
-    huff_raw segments, a short last segment; ``cut`` drops the last 9
-    payload bytes of the rle_raw frames at least 200 bytes narrower than
-    the widest (zeros past the cut decode to bytes of the segment's full
-    length, and the plain version's feed, as wide as the widest payload,
-    still holds the reads)."""
+    huff_raw segments, a short last segment. ``cut``: ``True`` drops the
+    last 9 payload bytes of the rle_raw frames at least 200 bytes
+    narrower than the widest (zeros past the cut decode to bytes of the
+    segment's full length); ``"widest"`` drops them from the widest
+    payload too, so that its reads run past every payload; ``"count"``
+    cuts the count of an rle_raw frame and of an RLE frame below their
+    streams' lengths, so that both decode short."""
     rng = np.random.default_rng(offset)
     rows = rng.integers(0, 256, (9, SEG), dtype=np.uint8)
     rows[1] = np.repeat(rng.integers(0, 40, SEG, dtype=np.uint8),
@@ -432,15 +438,22 @@ def _hand_frames(table, offset: int, cut: bool = False):
         flags.append(2 * rle_raw + huff_raw)
         flat += payload + bytes(len(poff) % 5)
     pbytes, flags = np.array(pbytes), np.array(flags, np.uint8)
-    if cut:
+    counts = np.array(counts, np.int32)
+    if cut in (True, "widest"):
         narrow = (flags & 2).astype(bool) & (pbytes < pbytes.max() - 200)
         assert narrow.sum() >= 2
+        if cut == "widest":
+            narrow |= pbytes == pbytes.max()
         pbytes[narrow] -= 9
+    elif cut == "count":
+        assert flags[0] & 2 and not flags[1] & 2
+        counts[0] -= 300
+        counts[1] //= 2
     return (np.frombuffer(bytes(flat), np.uint8).copy(), np.array(poff),
-            pbytes, np.array(counts, np.int32), flags)
+            pbytes, counts, flags)
 
 
-@pytest.mark.parametrize("cut", [False, True])
+@pytest.mark.parametrize("cut", [False, True, "widest", "count"])
 @pytest.mark.parametrize("offset", [0, 125])
 def test_decode_long_codes_and_hand_frames(cuda, offset, cut):
     table = _fibonacci_table()
@@ -484,3 +497,63 @@ def test_decode_warps_of_rle_raw_segments(cuda, alphabet):
         args, fast, off, n = _decode_args(cuda, container, codec, shift)
         got = _decode_equal(args, fast, off, n)
         assert got.cpu().numpy().tobytes() == data
+
+
+@pytest.mark.parametrize("aligned", [True, False])
+@pytest.mark.parametrize("name", NAMES)
+def test_huff_select_and_pack_match_plain(cuda, name, aligned):
+    """K2's two entries on the select cases of ``test_torch_k2_k3.py``:
+    counts 0, 1, 2047 and 2048, the identity table (every segment
+    escapes), 16-bit codes that straddle words and overflow the kept
+    words, 3-bit codes that share words, and bits at 8 * count and one
+    under it."""
+    words, counts, code, length = _to(cuda, *select_case(name, 5))
+    if not aligned:
+        words = _unaligned(words, 4)
+    got = huffman_select_segments(words, counts, code, length)
+    _equal(got, huffman_select_segments_plain(words, counts, code, length))
+    _equal(huffman_pack_segments(words, counts, code, length),
+           huffman_pack_segments_plain(words, counts, code, length))
+    raw = got[2].cpu()
+    assert raw[0] and (raw.all() if name == "identity" else not raw.all())
+
+
+def test_codec_stages_launch_the_fused_entries(cuda):
+    from tudocomp_tpu_torch.models.blockcodec import huff_stage, rle_stage
+
+    rows, lens = _edge_rows(5)
+    r, ln = _to(cuda, rows, lens)
+    hist = torch.zeros(256, dtype=torch.int64, device=cuda)
+    reset_launches()
+    sel, counts, _, h = rle_stage(r, ln, offset=0, hist_rows=slice(1, 45, 8),
+                                  hist=hist)
+    t = device_tables(HuffmanTable.from_counts(h.cpu().numpy() + 1,
+                                               max_len=16, min_len=3), cuda)
+    out = huff_stage(sel, counts, t["sym_code"], t["sym_len"])
+    torch.cuda.synchronize()
+    launched = {k: v for k, v in launch_counts().items() if v}
+    assert launched == {"rle_select": 1, "histogram_rows": 1,
+                        "huff_select": 1}, launched
+    assert h is hist and torch.equal(
+        hist, histogram_rows_plain(sel, counts, slice(1, 45, 8)))
+    _equal(out, huffman_select_segments_plain(sel, counts, t["sym_code"],
+                                              t["sym_len"]))
+
+
+@pytest.mark.parametrize("aligned", [True, False])
+@pytest.mark.parametrize("lo,hi", BATCHES)
+def test_histogram_rows_matches_plain(cuda, lo, hi, aligned):
+    rows, lens = _rows(lo % 97, hi - lo)
+    words, lens_t = _to(cuda, rows.view(">u4").astype(np.uint32).view(
+        np.int32), lens)
+    if not aligned:
+        words = _unaligned(words, 8)
+    picked = BlockCodec._hist_rows(lo, hi, True)
+    out = torch.full((256,), 3, dtype=torch.int64, device=cuda)
+    assert histogram_rows(words, lens_t, picked, out) is out
+    assert torch.equal(out - 3, histogram_rows_plain(words, lens_t, picked))
+    for step in (1, 3):
+        out.zero_()
+        histogram_rows(words, lens_t, slice(2, None, step), out)
+        assert torch.equal(out, histogram_rows_plain(words, lens_t,
+                                                     slice(2, None, step)))

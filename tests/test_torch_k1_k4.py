@@ -153,3 +153,91 @@ def test_select_wrapper_takes_plain_on_cpu():
         rle_select_segments(r, ln, offset=126)
     with pytest.raises(ValueError):
         rle_select_segments(r[:, :1024], ln)
+
+
+def _complete_table() -> HuffmanTable:
+    """A table whose codes fill the code space (Kraft sum 1), so that
+    every bit string decodes, zeros past a cut payload included."""
+    counts = np.random.default_rng(8).zipf(1.3, 256).clip(max=1 << 20) + 1
+    table = HuffmanTable.from_counts(counts, max_len=16)
+    assert sum(1 << (16 - int(n)) for n in table.sym_len) == 1 << 16
+    return table
+
+
+def _prefix_decode(payload: np.ndarray, count: int, table) -> np.ndarray:
+    """``count`` symbols of an MSB-first payload, bit by bit through the
+    code words, with zero bits past its end."""
+    words = {(int(n), int(c)): s for s, (c, n) in
+             enumerate(zip(table.sym_code, table.sym_len)) if n}
+    bits = np.unpackbits(payload)
+    out, pos = [], 0
+    for _ in range(count):
+        code = 0
+        for n in range(1, 17):
+            code = code << 1 | (int(bits[pos]) if pos < bits.size else 0)
+            pos += 1
+            if (n, code) in words:
+                out.append(words[n, code])
+                break
+    return np.array(out, np.uint8)
+
+
+def test_plain_decode_places_short_and_cut_segments():
+    """Segments that decode short and payloads cut below what their
+    counts read, with whole segments after them: the plain decode puts
+    every segment at ``c * SEG`` with zeros past a short decode (as K4
+    does), and the reads past a cut payload, which reach beyond the
+    widest payload, give zero bits."""
+    from tudocomp_tpu_torch.io.bitio import pack_tokens
+    from tudocomp_tpu_torch.ops.hufdec import decode_segments_plain
+
+    table = _complete_table()
+    rng = np.random.default_rng(12)
+    common = np.argsort(-table.sym_len.astype(np.int64))[:16]
+
+    def coded(syms):
+        return pack_tokens(table.sym_code[syms].astype(np.uint32),
+                           table.sym_len[syms])[0].view(np.uint8)
+
+    raw0 = rng.integers(0, 256, 600, dtype=np.uint8)
+    coded1 = rng.choice(common, SEG).astype(np.uint8)
+    lits = (np.arange(300) % 200 + 20).astype(np.uint8)
+    # a run of 100 fives (vbyte 98), literals, a run of 50 sevens
+    rle2 = np.concatenate([[5, 5, 98], lits, [7, 7, 48]]).astype(np.uint8)
+    raw3 = rng.integers(0, 256, SEG, dtype=np.uint8)
+    coded4 = rng.integers(0, 256, 1000, dtype=np.uint8)
+    payload1 = coded(coded1)
+    # (payload, payload bytes kept, count, flags, expected segment)
+    frames = [
+        (raw0, 600, 600, 3, raw0),                          # short
+        (payload1, 100, SEG, 2,                             # cut payload
+         _prefix_decode(payload1[:100], SEG, table)),
+        (rle2, rle2.size, 203, 1,                           # short RLE
+         np.concatenate([np.full(100, 5, np.uint8), lits[:200]])),
+        (raw3, SEG, SEG, 3, raw3),
+        (coded(coded4), None, 1000, 2, coded4),             # last, 1000 B
+    ]
+    flat, poff, pbytes = bytearray(b"\x09\x09"), [], []
+    for payload, kept, *_ in frames:
+        poff.append(len(flat))
+        pbytes.append(payload.size if kept is None else kept)
+        flat += payload.tobytes() + b"\xff" * 3
+    # segment 1 reads past the widest payload
+    read = int(table.sym_len[frames[1][4]].astype(np.int64).sum())
+    assert read > 8 * (max(pbytes) + 3)
+    t = decoder_tables(table)
+    orig_len = 4 * SEG + 1000
+    out = decode_segments_plain(
+        torch.from_numpy(np.frombuffer(bytes(flat), np.uint8).copy()),
+        torch.tensor(poff), torch.tensor(pbytes),
+        torch.tensor([f[2] for f in frames], dtype=torch.int32),
+        torch.tensor([f[3] for f in frames], dtype=torch.uint8),
+        *(torch.from_numpy(t[k]) for k in ("thresh", "offs", "symbols")),
+        offset=0, orig_len=orig_len,
+    ).numpy()
+    assert out.shape == (orig_len,)
+    for c, (*_, want) in enumerate(frames):
+        seg = out[c * SEG : min((c + 1) * SEG, orig_len)]
+        expect = np.zeros(seg.size, np.uint8)
+        expect[: want.size] = want
+        assert np.array_equal(seg, expect), c

@@ -48,8 +48,14 @@ _SIGNATURES = {
     "tdc_rle_select": [_P, _P, _P, _P, _P, _I, _I, _P],
     # words_in, counts, sym_code, sym_len, words_out, bits_out, nc, stream
     "tdc_huff_pack": [_P, _P, _P, _P, _P, _P, _I, _P],
+    # words_in, counts, sym_code, sym_len, words_out, bits_out,
+    # huff_raw_out, nc, stream
+    "tdc_huff_select": [_P, _P, _P, _P, _P, _P, _P, _I, _P],
     # words, lens, hist_out, rows, stream
     "tdc_hist": [_P, _P, _P, _I, _P],
+    # words (first row), lens (first row), hist_out (i64), rows, stride,
+    # stream
+    "tdc_hist_rows": [_P, _P, _P, _I, _I, _P],
     # flat, poff, pbytes, counts, flags, thresh, offs, symbols, fast,
     # out, nseg, flat_len, orig_len, offset, stream
     "tdc_hufdec": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _L, _L, _I,

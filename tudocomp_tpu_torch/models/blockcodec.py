@@ -8,11 +8,12 @@ segment:
 
 - ``rle_stage``: RLE pack with the ``rle_raw`` escape (RLE would
   expand: keep the input bytes) in one kernel (K1's select entry), and
-  the table histogram (K3) over a 1-in-8 sample of the first
-  ``HIST_SEGS`` segments;
+  the table histogram (K3, reading the rows in place) over a 1-in-8
+  sample of the first ``HIST_SEGS`` segments;
 - the host builds the canonical table (``coders/huffman.py``);
-- ``huff_stage``: Huffman pack (K2) and the ``huff_raw`` escape (coding
-  would not shrink: keep the stream bytes);
+- ``huff_stage``: Huffman pack and the ``huff_raw`` escape (coding
+  would not shrink: keep the stream bytes) in one kernel (K2's select
+  entry);
 - the host assembles the container (numpy, as in the reference).
 
 Decode parses the frames with the port's host library
@@ -32,10 +33,10 @@ import torch
 from tudocomp_tpu_torch import native
 from tudocomp_tpu_torch.coders.huffman import HuffmanTable
 from tudocomp_tpu_torch.io.bitio import BitReader, BitWriter
-from tudocomp_tpu_torch.ops.hist import histogram_words
+from tudocomp_tpu_torch.ops.hist import histogram_rows
 from tudocomp_tpu_torch.ops.hufdec import SEG, decode_segments, decoder_tables
 from tudocomp_tpu_torch.ops.segpack import (
-    huffman_pack_segments, rle_select_segments,
+    huffman_select_segments, rle_select_segments,
 )
 from tudocomp_tpu_torch.utils.vbyte import (
     encode_vbyte_array, read_vbyte, write_vbyte,
@@ -67,33 +68,32 @@ def device_tables(table: HuffmanTable | None, device) -> dict:
     return {k: torch.from_numpy(v).to(device) for k, v in arrays.items()}
 
 
-def rle_stage(seg_rows, seg_lens, *, offset: int, hist_rows: slice | None):
+def rle_stage(seg_rows, seg_lens, *, offset: int, hist_rows: slice | None,
+              hist: torch.Tensor | None = None):
     """Stage 1 on a batch ``seg_rows u8[NC, SEG]``, ``seg_lens i32[NC]``.
 
     Returns ``(sel i32[NC, 512], counts i32[NC], rle_raw bool[NC],
     hist)``: the big-endian words of the escape-selected stream (the
     RLE stream, or the input bytes where RLE would expand), its length,
-    the escape flag, and the i32[256] histogram of the selected streams
-    of the rows ``hist_rows`` (``None``: no histogram). Bytes past
-    ``seg_lens`` never reach ``sel``."""
+    the escape flag, and the i64[256] histogram ``hist`` (a new one when
+    ``None``) with the selected streams of the rows ``hist_rows`` added
+    in (``None``: no histogram, and ``hist`` is returned as given). Bytes
+    past ``seg_lens`` never reach ``sel``."""
     sel, counts, rle_raw = rle_select_segments(seg_rows, seg_lens,
                                                offset=offset)
-    hist = None
     if hist_rows is not None:
-        hist = histogram_words(
-            sel[hist_rows].contiguous(), counts[hist_rows].contiguous()
-        )
+        if hist is None:
+            hist = torch.zeros(256, dtype=torch.int64, device=sel.device)
+        histogram_rows(sel, counts, hist_rows, hist)
     return sel, counts, rle_raw, hist
 
 
 def huff_stage(sel_words, counts, sym_code, sym_len):
     """Stage 2: Huffman pack plus the ``huff_raw`` escape (payload =
-    the stream bytes whenever coding would not strictly shrink them).
+    the stream bytes whenever coding would not strictly shrink them), in
+    one kernel (K2's select entry).
     Returns ``(words i32[NC, 512], bits i32[NC], huff_raw bool[NC])``."""
-    words, bits = huffman_pack_segments(sel_words, counts, sym_code, sym_len)
-    huff_raw = bits >= counts * 8
-    out = torch.where(huff_raw[:, None], sel_words, words)
-    return out, torch.where(huff_raw, counts * 8, bits), huff_raw
+    return huffman_select_segments(sel_words, counts, sym_code, sym_len)
 
 
 @dataclass
@@ -181,13 +181,12 @@ class BlockCodec:
         stage1 = []
         for lo in range(0, nseg, self.batch_lanes):
             hi = min(lo + self.batch_lanes, nseg)
-            sel, counts, rle_raw, h = rle_stage(
+            sel, counts, rle_raw, _ = rle_stage(
                 _upload(seg_rows[lo:hi], dev), _upload(seg_lens[lo:hi], dev),
                 offset=self.offset, hist_rows=self._hist_rows(lo, hi, sampled),
+                hist=hist,
             )
             stage1.append((sel, counts, rle_raw))
-            if h is not None:
-                hist += h
         hist_np = hist.cpu().numpy()
         table = self._table_from_hist(hist_np, sampled)
         t = device_tables(table, dev)

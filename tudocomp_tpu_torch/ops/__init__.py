@@ -1,5 +1,6 @@
-"""Device ops of the port. The kernels — K1–K4 of the TBC2 path (K1 with
-a second entry that fuses the codec's escape select), K5–K7 of the
+"""Device ops of the port. The kernels — K1–K4 of the TBC2 path (K1 and
+K2 each with a second entry that fuses the codec's escape select, K3
+with one that reads a strided slice of rows in place), K5–K7 of the
 chunked bit packers — are each a wrapper that launches a hand-written
 CUDA kernel on CUDA tensors and runs its plain torch version on CPU
 tensors. The launch counts also cover the stage probes'
@@ -8,10 +9,11 @@ variants (``tudocomp_tpu_torch.probes``)."""
 from tudocomp_tpu_torch.ops.bitpack_chunks import (
     pack_bytes_huffman_chunks, pack_tokens_chunks, rle_pack_chunks,
 )
-from tudocomp_tpu_torch.ops.hist import histogram_words
+from tudocomp_tpu_torch.ops.hist import histogram_rows, histogram_words
 from tudocomp_tpu_torch.ops.hufdec import decode_segments, decoder_tables
 from tudocomp_tpu_torch.ops.segpack import (
-    huffman_pack_segments, rle_pack_segments, rle_select_segments,
+    huffman_pack_segments, huffman_select_segments, rle_pack_segments,
+    rle_select_segments,
 )
 # after the ops it uses: the probes import ops.segpack
 from tudocomp_tpu_torch.probes import COUNTERS as _PROBE_COUNTERS
@@ -21,7 +23,9 @@ KERNELS = {
     "rle_pack": rle_pack_segments,
     "rle_select": rle_select_segments,
     "huffman_pack": huffman_pack_segments,
+    "huff_select": huffman_select_segments,
     "histogram": histogram_words,
+    "histogram_rows": histogram_rows,
     "decode": decode_segments,
     "pack_tokens_chunks": pack_tokens_chunks,
     "pack_bytes_huffman_chunks": pack_bytes_huffman_chunks,
@@ -29,7 +33,7 @@ KERNELS = {
 }
 
 #: the kernels of the TBC2 codec's path, and of the chunked packers'
-CODEC_KERNELS = ("rle_select", "huffman_pack", "histogram", "decode")
+CODEC_KERNELS = ("rle_select", "histogram_rows", "huff_select", "decode")
 CHUNK_KERNELS = ("pack_tokens_chunks", "pack_bytes_huffman_chunks",
                  "rle_pack_chunks")
 #: the stage probes' variants (P1–P4), each with its own launch count
@@ -48,8 +52,8 @@ def launch_counts() -> dict:
 
 __all__ = [
     "CHUNK_KERNELS", "CODEC_KERNELS", "KERNELS", "PROBE_KERNELS",
-    "decode_segments", "decoder_tables", "histogram_words",
-    "huffman_pack_segments", "launch_counts", "pack_bytes_huffman_chunks",
-    "pack_tokens_chunks", "reset_launches", "rle_pack_chunks",
-    "rle_pack_segments", "rle_select_segments",
+    "decode_segments", "decoder_tables", "histogram_rows", "histogram_words",
+    "huffman_pack_segments", "huffman_select_segments", "launch_counts",
+    "pack_bytes_huffman_chunks", "pack_tokens_chunks", "reset_launches",
+    "rle_pack_chunks", "rle_pack_segments", "rle_select_segments",
 ]

@@ -98,12 +98,11 @@ def decode_segments(flat, poff, pbytes, counts, flags, thresh, offs,
     segment (at most SEG); ``flags`` u8[nseg] (bit 0 ``huff_raw``, bit 1
     ``rle_raw``); ``thresh``/``offs`` i32[16], ``symbols`` u8[256] and
     ``fast`` i16[1024] from :func:`decoder_tables` (``None``: made here
-    by :func:`fast_decode_table`). Returns the ``u8[orig_len]`` output.
-    CUDA tensors launch ``csrc/hufdec.cu``, which leaves a segment that
-    decodes short zero up to its length; CPU tensors take
-    :func:`decode_segments_plain`, which needs no ``fast`` table and
-    concatenates the decoded bytes. The two agree wherever every segment
-    decodes in full, as in every container the codec writes.
+    by :func:`fast_decode_table`). Returns the ``u8[orig_len]`` output:
+    segment ``c`` at ``c * SEG``, zero past a segment that decodes short;
+    payload bytes past ``pbytes`` (or past ``flat``) read as zero. CUDA
+    tensors launch ``csrc/hufdec.cu``; CPU tensors take
+    :func:`decode_segments_plain`, which needs no ``fast`` table.
     """
     nseg = counts.shape[0]
     _build.check(flat, torch.uint8, (flat.shape[0],), "flat")
@@ -140,33 +139,47 @@ decode_segments.launches = 0
 
 def build_feed(flat, poff, pbytes, width: int) -> torch.Tensor:
     """Ragged payload gather: row c holds ``flat[poff[c]:][:pbytes[c]]``
-    zero padded to ``width`` bytes (the JAX decoders' feed, as bytes)."""
+    zero padded to ``width`` bytes (the JAX decoders' feed, as bytes);
+    like K4, it reads nothing outside ``flat``."""
+    n = flat.shape[0]
+    start = poff.clamp(0, n)
+    nb = torch.minimum(pbytes.clamp(min=0), n - start)
     j = torch.arange(width, device=flat.device)
-    live = j[None, :] < pbytes[:, None]
-    src = (poff[:, None] + j[None, :]).clamp(0, max(flat.shape[0] - 1, 0))
+    live = j[None, :] < nb[:, None]
+    src = (start[:, None] + j[None, :]).clamp(0, max(n - 1, 0))
     return torch.where(live, flat[src], 0)
 
 
 def expand_records(chars, ends, out_lens) -> torch.Tensor:
-    """Records ``(char, cumulative end)`` per slot -> output bytes, with
-    each segment's ends clipped to its real length (``out_lens``)."""
+    """Records ``(char, cumulative end)`` per slot -> ``u8[nseg * SEG]``:
+    segment c's bytes at ``c * SEG``, its ends clipped to its real length
+    (``out_lens``), zeros past a segment that decodes short."""
+    nseg = chars.shape[0]
     ends = torch.minimum(ends, out_lens[:, None])
     prev = torch.cat([torch.zeros_like(ends[:, :1]), ends[:, :-1]], dim=1)
-    deltas = (ends - prev).clamp(min=0)
-    return torch.repeat_interleave(
-        chars.reshape(-1), deltas.reshape(-1)
-    ).to(torch.uint8)
+    deltas = (ends - prev).clamp(min=0).reshape(-1)
+    first = prev + SEG * torch.arange(nseg, device=chars.device)[:, None]
+    # each byte: its record's first output position + its place in it
+    within = (torch.arange(int(deltas.sum()), device=chars.device)
+              - torch.repeat_interleave(torch.cumsum(deltas, 0) - deltas,
+                                        deltas))
+    out = torch.zeros(nseg * SEG, dtype=torch.uint8, device=chars.device)
+    out[torch.repeat_interleave(first.reshape(-1), deltas) + within] = (
+        torch.repeat_interleave(chars.reshape(-1), deltas).to(torch.uint8))
+    return out
 
 
 def decode_segments_plain(flat, poff, pbytes, counts, flags, thresh, offs,
                           symbols, *, offset: int, orig_len: int):
     """Plain torch K4: vectorised over segments, one Python step per
-    symbol slot, emitting ``(char, end)`` records like the JAX scan."""
+    symbol slot, emitting ``(char, end)`` records like the JAX scan, then
+    placing each segment's bytes at ``c * SEG``."""
     nseg = counts.shape[0]
     dev = flat.device
     counts = counts.long().clamp(0, SEG)
     n_slots = int(counts.max()) if nseg else 0
-    width = (int(pbytes.max()) if nseg else 0) + 3
+    # the widest read: 16-bit codes for every symbol, and a 3-byte window
+    width = 2 * n_slots + 3
     feed = build_feed(flat, poff, pbytes, width).long()
     raw = (flags & 1).bool()
     rleraw = (flags & 2).bool()

@@ -6,9 +6,11 @@ Counterparts of ``tudocomp_tpu/ops/segpack_pallas.py``:
 travel between stages as big-endian u32 words, ``[NC, 512]`` per batch
 (held as int32). :func:`rle_select_segments` is K1 with the codec's
 ``rle_raw`` escape select fused in (``rle_stage`` in
-``models/blockcodec.py``). Each wrapper launches its hand-written CUDA
-kernel (``csrc/rle_pack.cu``, ``csrc/huff_pack.cu``) on CUDA tensors and
-runs its plain torch version on CPU tensors; there is no other route.
+``models/blockcodec.py``), and :func:`huffman_select_segments` K2 with
+the ``huff_raw`` one (``huff_stage``). Each wrapper launches its
+hand-written CUDA kernel (``csrc/rle_pack.cu``, ``csrc/huff_pack.cu``)
+on CUDA tensors and runs its plain torch version on CPU tensors; there
+is no other route.
 """
 
 from __future__ import annotations
@@ -132,13 +134,10 @@ def huffman_pack_segments(words: torch.Tensor, counts: torch.Tensor,
     512 packed words and the FULL bit count. Keeping 512 words is exact
     for the codec: a segment whose bits exceed 16384 >= 8 * count takes
     the ``huff_raw`` escape, which discards the packed words."""
-    nc = words.shape[0]
-    _build.check(words, torch.int32, (nc, STREAM_WORDS), "words")
-    _build.check(counts, torch.int32, (nc,), "counts")
-    _build.check(sym_code, torch.int32, (256,), "sym_code")
-    _build.check(sym_len, torch.int32, (256,), "sym_len")
+    _check_huff_args(words, counts, sym_code, sym_len)
     if not _build.on_cuda(words, counts, sym_code, sym_len):
         return huffman_pack_segments_plain(words, counts, sym_code, sym_len)
+    nc = words.shape[0]
     out = torch.empty(nc, STREAM_WORDS, dtype=torch.int32,
                       device=words.device)
     bits = torch.empty(nc, dtype=torch.int32, device=words.device)
@@ -153,6 +152,54 @@ def huffman_pack_segments(words: torch.Tensor, counts: torch.Tensor,
 
 
 huffman_pack_segments.launches = 0
+
+
+def _check_huff_args(words, counts, sym_code, sym_len) -> None:
+    nc = words.shape[0]
+    _build.check(words, torch.int32, (nc, STREAM_WORDS), "words")
+    _build.check(counts, torch.int32, (nc,), "counts")
+    _build.check(sym_code, torch.int32, (256,), "sym_code")
+    _build.check(sym_len, torch.int32, (256,), "sym_len")
+
+
+def huffman_select_segments(words: torch.Tensor, counts: torch.Tensor,
+                            sym_code: torch.Tensor, sym_len: torch.Tensor):
+    """K2 with the ``huff_raw`` escape select: per segment, the packed
+    codes of :func:`huffman_pack_segments`, or the stream ``words``
+    themselves where the codes would not shrink them (``bits >= 8 *
+    counts``). Returns ``(words i32[NC, 512], bits i32[NC], huff_raw
+    bool[NC])``: the payload words, its bits (``8 * counts`` on the
+    escape) and the escape flag."""
+    _check_huff_args(words, counts, sym_code, sym_len)
+    if not _build.on_cuda(words, counts, sym_code, sym_len):
+        return huffman_select_segments_plain(words, counts, sym_code,
+                                             sym_len)
+    nc = words.shape[0]
+    out = torch.empty(nc, STREAM_WORDS, dtype=torch.int32,
+                      device=words.device)
+    bits = torch.empty(nc, dtype=torch.int32, device=words.device)
+    huff_raw = torch.empty(nc, dtype=torch.bool, device=words.device)
+    if nc:
+        _build.launch(
+            "tdc_huff_select", words.data_ptr(), counts.data_ptr(),
+            sym_code.data_ptr(), sym_len.data_ptr(), out.data_ptr(),
+            bits.data_ptr(), huff_raw.data_ptr(), nc, device=words.device,
+        )
+        huffman_select_segments.launches += 1
+    return out, bits, huff_raw
+
+
+huffman_select_segments.launches = 0
+
+
+def huffman_select_segments_plain(words, counts, sym_code, sym_len):
+    """Plain torch K2 + select: :func:`huffman_pack_segments_plain`,
+    then the input words where ``bits >= 8 * counts``."""
+    packed, bits = huffman_pack_segments_plain(words, counts, sym_code,
+                                               sym_len)
+    huff_raw = bits >= counts * 8
+    out = torch.where(huff_raw[:, None], words, packed)
+    return out, torch.where(huff_raw, counts * 8, bits), huff_raw
 
 
 def huffman_pack_segments_plain(words, counts, sym_code, sym_len):

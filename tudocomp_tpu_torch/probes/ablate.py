@@ -7,15 +7,25 @@ the Hopper K2 itself: ``csrc/huff_pack.cu`` is one kernel template over
 the stage it stops after, so each variant runs K2's own code up to its
 cut. The cost of a stage is the difference between adjacent variants.
 
-====== ========================================= =========================
-stage  runs                                      output
-====== ========================================= =========================
-0      load                                      wrapping sum of live bytes
-1      + shared table and lookup                 ... of ``code + len``
-2      + block scan of code lengths              ... of live bit offsets
-3      + ``atomicOr`` placement in shared memory ... of the 512 words
-4      + store: K2 itself                        ``(words, bits)``
-====== ========================================= =========================
+====== ============================================ ======================
+stage  runs                                         output
+====== ============================================ ======================
+0      load (one warp a segment, 16-byte loads)     wrapping sum of live
+                                                    bytes
+1      + shared table fill and code-length lookup   ... of ``code + len``
+2      + warp sum-scans of the code lengths         ... of live bit offsets
+3      + placement: a second lookup, each lane's    ... of the 512 words
+       codes appended in registers, whole words
+       staged in shared memory, shared words
+       completed by a warp OR-scan (no atomics)
+4      + store: K2 itself                           ``(words, bits)``
+====== ============================================ ======================
+
+The cuts fall where they fell in the first K2 (one block a segment,
+shared ``atomicOr`` placement) and the checksums are the same, so the
+plain versions did not change with the kernel's redesign: s3 - s2 is
+still what placement costs, now with the second table lookup in it
+(s1 looks up the lengths only once, for the scan).
 
 Stages 0-3 return one checksum per segment (``i32[NC]``, the u32 sum's
 bit pattern), so that nothing they compute is dead code. The word form
