@@ -27,7 +27,9 @@ It needs one CUDA device and exits non-zero without one. Phases:
    (Huffman + pack) with the table of the corpus histogram, K5 on the
    Huffman tokens (equal to K6), chunk 0 of K6 decoded back with the
    port's host decoder; launch counts of that run, then each kernel
-   against its plain version (exact equality, both times);
+   against its plain version (exact equality, the zero words past each
+   stream included, both times), with the share of its bound that each
+   reaches;
 7. the stage probes (P1-P4: K2 cut after each stage in its word and
    byte forms, the data-movement floor, placement under three
    strategies) on the same 256 MiB as 131,072 segments and on the main
@@ -431,9 +433,12 @@ def chunk_path(corpus, dev, check: Checker) -> dict:
         check(name, kernel, plain,
               nbytes=in_bytes + 4 * words.numel() + 4 * c,
               nops=OPS_PER_ELEM * positions, reps=(10, 1))
+        r = check.res[name]
         stream = 4 * int(((bits.long() + 31) // 32).sum()) + 4 * c
-        print(f"   {name}: bound of the stream words alone "
-              f"{bound(in_bytes + stream, 0)['bound_ms']:.4f} ms")
+        alone = bound(in_bytes + stream, 0)["bound_ms"]
+        print(f"   {name}: {r['ms']:.4f} ms, {r['bound_ms'] / r['ms']:.0%} "
+              f"of its bound {r['bound_ms']:.4f} ms ({alone:.4f} ms for "
+              f"the stream words alone, without the zero tail)")
     return counts
 
 
@@ -456,8 +461,9 @@ SOURCES = {
                       "tudocomp_tpu/ops/hufdec_pallas.py:74"),
     "pack_tokens_chunks": ("tudocomp_tpu_torch/csrc/bitpack.cu",
                            "tudocomp_tpu/ops/bitpack_pallas.py:187"),
-    "pack_bytes_huffman_chunks": ("tudocomp_tpu_torch/csrc/bitpack.cu",
-                                  "tudocomp_tpu/ops/bitpack_pallas.py:198"),
+    "pack_bytes_huffman_chunks": (
+        "tudocomp_tpu_torch/csrc/huff_chunk_pack.cu",
+        "tudocomp_tpu/ops/bitpack_pallas.py:198"),
     "rle_pack_chunks": ("tudocomp_tpu_torch/csrc/rle_chunk_pack.cu",
                         "tudocomp_tpu/ops/bitpack_pallas.py:371"),
 }

@@ -1,7 +1,9 @@
 #!/usr/bin/env python3
-"""Card times of the TBC2 codec's stages and kernels (K1-K4).
+"""Card times of the TBC2 codec's stages and kernels (K1-K4), or of the
+chunked bit packers (K5-K7).
 
-Run from the root of a checkout: ``python3 etc/torch_kernels.py``. The
+Run from the root of a checkout: ``python3 etc/torch_kernels.py
+[codec|chunks]`` (default ``codec``). The
 package it times is the one under the current directory, so the same
 script times another checkout of the port when run from that
 checkout's root (``cd other && python3 /path/to/etc/torch_kernels.py``):
@@ -23,6 +25,15 @@ per call after a warm-up):
 - K4 (``decode_segments``) on the container of that batch, and on the
   container of the whole 256 MiB in one launch, as ``decompress_device``
   runs it.
+
+``chunks`` times, on the same 256 MiB as 64 chunks of 4 MiB (as
+``chip_smoke.py`` phase 6 runs them): K7 (``rle_pack_chunks``), K5
+(``pack_tokens_chunks``) on the RLE tokens, K6
+(``pack_bytes_huffman_chunks``) with the table of the corpus histogram,
+and K5 on the Huffman tokens, after checking that K5's streams equal
+K7's and K6's and that every word past each stream is zero. Each line
+carries two bounds: with the whole ``[C, cap]`` row written (the output
+contract) and with the stream words alone.
 
 Each line carries its bound: the bytes the function must move (inputs
 read once, outputs written once) over 3.35 TB/s. The last line is one
@@ -87,12 +98,77 @@ def decode_case(codec, data: bytes, dev):
     return call, nbytes
 
 
+def chunk_cases(corpus, dev) -> dict:
+    """K5-K7 on ``corpus`` as 64 chunks: each kernel's time and bounds."""
+    import numpy as np
+    import torch
+
+    from tudocomp_tpu_torch.coders.huffman import HuffmanTable
+    from tudocomp_tpu_torch.ops import bitpack_chunks as bc
+    from tudocomp_tpu_torch.ops.huffman import (
+        huffman_encode_tokens, masked_histogram,
+    )
+    from tudocomp_tpu_torch.ops.rle import rle_tokens
+
+    data = torch.from_numpy(corpus.reshape(64, -1)).to(dev)
+    c, n = data.shape
+    lengths = torch.full((c,), n, dtype=torch.int32, device=dev)
+    values, lens = rle_tokens(data, lengths)
+    hist = masked_histogram(data, data.numel())
+    table = HuffmanTable.from_counts(hist.cpu().numpy() + 1, max_len=16,
+                                     min_len=3)
+    code = torch.from_numpy(table.sym_code.astype(np.int32)).to(dev)
+    length = torch.from_numpy(table.sym_len.astype(np.int32)).to(dev)
+    hv, hl = huffman_encode_tokens(data, data.numel(), code, length)
+    hv, hl = hv.reshape(c, n), hl.reshape(c, n)
+    cases = {
+        "rle_pack_chunks": (lambda: bc.rle_pack_chunks(data, lengths),
+                            n * c + 4 * c, 8),
+        "pack_tokens_chunks": (lambda: bc.pack_tokens_chunks(values, lens),
+                               8 * n * c, 1),
+        "pack_bytes_huffman_chunks": (
+            lambda: bc.pack_bytes_huffman_chunks(data, lengths, code, length),
+            n * c + 4 * c + 2 * 4 * 256, 1),
+        "pack_tokens_chunks_huffman": (lambda: bc.pack_tokens_chunks(hv, hl),
+                                       8 * n * c, 1),
+    }
+    outs = {}
+    for name, (call, _, unit) in cases.items():
+        words, count = call()
+        bits = count.long() * unit
+        past = torch.arange(words.shape[1], device=dev)[None, :] \
+            >= ((bits + 31) // 32)[:, None]
+        if bool((words[past] != 0).any()):
+            raise AssertionError(f"{name}: words past the stream not zero")
+        outs[name] = (words, bits)
+    for a, b in (("pack_tokens_chunks", "rle_pack_chunks"),
+                 ("pack_tokens_chunks_huffman", "pack_bytes_huffman_chunks")):
+        (wa, ba), (wb, bb) = outs[a], outs[b]
+        width = min(wa.shape[1], wb.shape[1])
+        if not (torch.equal(ba, bb)
+                and torch.equal(wa[:, :width], wb[:, :width])):
+            raise AssertionError(f"{a} differs from {b}")
+    res = {}
+    for name, (call, in_bytes, _) in cases.items():
+        words, bits = outs[name]
+        stream = 4 * int(((bits + 31) // 32).sum())
+        res[f"{name}_ms"] = time_ms(call, 20)
+        res[f"{name}_bound_ms"] = bound_ms(in_bytes + 4 * words.numel()
+                                           + 4 * c)
+        res[f"{name}_stream_bound_ms"] = bound_ms(in_bytes + stream + 4 * c)
+    return res
+
+
 def main() -> int:
     import torch
 
     if not torch.cuda.is_available():
         print("torch_kernels: CUDA is not available", file=sys.stderr)
         return 1
+    mode = sys.argv[1] if len(sys.argv) > 1 else "codec"
+    if mode not in ("codec", "chunks"):
+        print(f"torch_kernels: unknown mode {mode!r}", file=sys.stderr)
+        return 2
     sys.path.insert(0, os.getcwd())
     import tudocomp_tpu_torch
     from bench import make_corpus
@@ -114,6 +190,13 @@ def main() -> int:
     print(f"kernel build {_build.build():.1f} s")
     dev = torch.device("cuda")
     corpus = make_corpus(256 * MIB)
+    if mode == "chunks":
+        res = {"card": card, **chunk_cases(corpus, dev)}
+        for key, value in res.items():
+            if key != "card":
+                print(f"{key}: {value:.4f}")
+        print(json.dumps(res))
+        return 0
     codec = BlockCodec(device=dev)
     batch = corpus[: 8192 * SEG].tobytes()
     rows_np, lens_np = codec.split_segments(batch)

@@ -1,9 +1,9 @@
 #!/usr/bin/env python3
 """Where the time goes in the torch port, on one NVIDIA GPU.
 
-Run from the repo root: ``python3 etc/torch_profile.py [all|stages]``
-(``stages``: only the per-stage traces of item 1, in a process of their
-own). It needs CUDA and exits non-zero without it. After one warm-up of
+Run from the repo root: ``python3 etc/torch_profile.py
+[all|stages|chunks]`` (``stages``: only the per-stage traces of item 1,
+``chunks``: only items 2 and 3, each in a process of its own). It needs CUDA and exits non-zero without it. After one warm-up of
 each, it traces with ``torch.profiler`` (CPU and CUDA activities):
 
 1. the TBC2 codec: ``BlockCodec(device="cuda").compress`` and
@@ -20,7 +20,8 @@ each, it traces with ``torch.profiler`` (CPU and CUDA activities):
    ``chip_smoke.py`` phase 6 runs them (K7, RLE tokens, K5, histogram,
    K6, Huffman tokens, K5);
 3. K7, K5 (on the RLE tokens) and K6 alone, so that each one's passes
-   and its output's zero-fill show apart.
+   show apart, and K5's zero-fill of its output (K6 and K7 write their
+   zero tails themselves).
 
 For each it prints the host wall time, the device's busy time (the union
 of its kernel, copy and memset intervals), the idle share, and the
@@ -88,11 +89,10 @@ def traced(name: str, fn, top: int = 14) -> None:
 
 
 def main() -> int:
-    import numpy as np
     import torch
 
     which = sys.argv[1] if len(sys.argv) > 1 else "all"
-    if which not in ("all", "stages"):
+    if which not in ("all", "stages", "chunks"):
         print(f"torch_profile: unknown part {which!r}", file=sys.stderr)
         return 2
     if not torch.cuda.is_available():
@@ -101,17 +101,6 @@ def main() -> int:
     sys.path.insert(0, ".")
     from bench import make_corpus
     from tudocomp_tpu_torch import BlockCodec, _build
-    from tudocomp_tpu_torch.coders.huffman import HuffmanTable
-    from tudocomp_tpu_torch.models.blockcodec import (
-        BATCH_LANES, device_tables, huff_stage, rle_stage,
-    )
-    from tudocomp_tpu_torch.ops.hist import histogram_words
-    from tudocomp_tpu_torch.ops import bitpack_chunks as bc
-    from tudocomp_tpu_torch.ops.huffman import (
-        huffman_encode_tokens, masked_histogram,
-    )
-    from tudocomp_tpu_torch.ops.rle import rle_tokens
-    from tudocomp_tpu_torch.ops.segpack import rle_pack_segments
 
     print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
@@ -119,15 +108,33 @@ def main() -> int:
     _build.build()
     _build.build_host()
     corpus = make_corpus(256 * MIB)
-    data_bytes = corpus.tobytes()
     codec = BlockCodec(device="cuda")
+    dev = torch.device("cuda")
+    if which != "chunks":
+        stage_traces(which, codec, corpus, dev)
+    if which == "stages":
+        return 0
+    chunk_traces(corpus, dev)
+    return 0
+
+
+def stage_traces(which, codec, corpus, dev) -> None:
+    """Item 1: the codec (``all`` only) and its stages alone."""
+    import torch
+
+    from tudocomp_tpu_torch.models.blockcodec import (
+        BATCH_LANES, device_tables, huff_stage, rle_stage,
+    )
+    from tudocomp_tpu_torch.ops.hist import histogram_words
+    from tudocomp_tpu_torch.ops.segpack import rle_pack_segments
+
+    data_bytes = corpus.tobytes()
     if which == "all":
         container = codec.compress(data_bytes)
         traced("codec compress 256 MiB", lambda: codec.compress(data_bytes))
         traced("codec decompress_device 256 MiB",
                lambda: codec.decompress_device(container))
 
-    dev = torch.device("cuda")
     rows = torch.from_numpy(corpus.reshape(-1, 2048)).to(dev)
     seg_lens = torch.full((rows.shape[0],), 2048, dtype=torch.int32,
                           device=dev)
@@ -172,8 +179,19 @@ def main() -> int:
     sub, subc = sel0[sample].contiguous(), counts0[sample].contiguous()
     traced("K3 histogram_words alone, the 1024 gathered rows, 16 times",
            lambda: [histogram_words(sub, subc) for _ in range(16)])
-    if which == "stages":
-        return 0
+
+
+def chunk_traces(corpus, dev) -> None:
+    """Items 2 and 3: the chunked bit packers."""
+    import numpy as np
+    import torch
+
+    from tudocomp_tpu_torch.coders.huffman import HuffmanTable
+    from tudocomp_tpu_torch.ops import bitpack_chunks as bc
+    from tudocomp_tpu_torch.ops.huffman import (
+        huffman_encode_tokens, masked_histogram,
+    )
+    from tudocomp_tpu_torch.ops.rle import rle_tokens
 
     data = torch.from_numpy(corpus.reshape(CHUNKS, -1)).to(dev)
     c, n = data.shape
@@ -200,7 +218,6 @@ def main() -> int:
            lambda: bc.pack_tokens_chunks(values, lens))
     traced("K6 pack_bytes_huffman_chunks alone",
            lambda: bc.pack_bytes_huffman_chunks(data, lengths, code, length))
-    return 0
 
 
 if __name__ == "__main__":

@@ -60,6 +60,8 @@ CASES = {
     "mixed_5seg": (_mixed(5)[:-3], {}),
     "sampled_64seg": (_mixed(64, seed=1), {}),
     "min_code_len_4": (_mixed(5, seed=2)[:-3], {"min_code_len": 4}),
+    # offset biases every RLE run token and is written into the header
+    "offset_3": (_mixed(5, seed=3)[:-3], {"offset": 3}),
 }
 
 

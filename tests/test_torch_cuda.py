@@ -35,6 +35,7 @@ from tudocomp_tpu_torch.ops.segpack import (
     rle_select_segments_plain,
 )
 from tudocomp_tpu_torch.probes import ablate, floor, place
+from test_torch_container_hardening import flipped, hardening_container
 from test_torch_k2_k3 import BATCHES, NAMES, select_case
 
 pytestmark = pytest.mark.cuda
@@ -172,7 +173,7 @@ def _equal(got, want):
         assert torch.equal(g, w)
 
 
-@pytest.mark.parametrize("offset", [0, 1, 125])
+@pytest.mark.parametrize("offset", [0, 1, 125, 4095])
 def test_rle_pack_chunks_matches_plain(cuda, offset):
     data, lengths = _to(cuda, *_chunks(offset))
     _equal(rle_pack_chunks(data, lengths, offset=offset),
@@ -226,6 +227,119 @@ def test_pack_tokens_chunks_equals_rle_pack_chunks(cuda):
     assert torch.equal(bits, 8 * nbytes)
     width = min(words.shape[1], tw.shape[1])
     assert torch.equal(words[:, :width], tw[:, :width])
+
+
+def _dirty(dev, nbytes: int = 64 << 20) -> None:
+    """Leave garbage in the caching allocator's free blocks, so that a
+    kernel's ``torch.empty`` output starts out non-zero."""
+    junk = torch.full((nbytes // 4,), 0x5A5A5A5A, dtype=torch.int32,
+                      device=dev)
+    del junk
+
+
+def _zero_past_stream(words, bits):
+    """Every word past ``ceil(bits / 32)`` of each row is zero."""
+    past = torch.arange(words.shape[1], device=words.device)[None, :] \
+        >= ((bits.long() + 31) // 32)[:, None]
+    assert not bool((words[past] != 0).any())
+
+
+#: K7's run boundaries (start, length of a run of 9s in random 0..3 data;
+#: tiles are 2048 positions, pieces 8192): a piece end on a tile edge, a
+#: run of RUN_CAP + 1, of 2 * RUN_CAP across eight tiles, of RUN_CAP +
+#: 2048, one ending on a tile edge, and one of 3 * RUN_CAP from 1
+RLE_RUNS = [(8192, 2048), (2047, 8193), (4096, 16384), (100, 8192 + 2048),
+            (2048 * 3, 2048), (1, 3 * 8192)]
+
+
+@pytest.mark.parametrize("offset", [0, 125, 4095])
+@pytest.mark.parametrize("run", range(len(RLE_RUNS)))
+def test_rle_pack_chunks_run_boundaries(cuda, run, offset):
+    """Runs across tiles and pieces, lengths that cut a run mid-tile and
+    at a tile edge, an output buffer that was not zeroed."""
+    n = 4 * 8192 + 2048
+    rng = np.random.default_rng(100 + run)
+    data = rng.integers(0, 4, (5, n), dtype=np.uint8)
+    start, length = RLE_RUNS[run]
+    data[:, start : start + length] = 9
+    data[4, :] = 9  # one run over the whole row: four full pieces
+    lengths = np.array([n, start + length // 2, start + 4097, 6144, n],
+                       np.int32)
+    d, ln = _to(cuda, data, lengths)
+    _dirty(cuda)
+    got = rle_pack_chunks(d, ln, offset=offset)
+    _equal(got, rle_pack_chunks_plain(d, ln, offset=offset))
+    _zero_past_stream(got[0], 8 * got[1])
+
+
+def _k6_table(kind: str, data):
+    """K6 tables: the data's canonical code, every code 16 bits (a pair
+    fills a word), or random codes with a third of the symbols absent
+    (length 0) and the others 1..16 bits."""
+    rng = np.random.default_rng(len(kind))
+    if kind == "corpus":
+        t = HuffmanTable.from_counts(
+            np.bincount(data.reshape(-1), minlength=256) + 1, max_len=16,
+            min_len=3)
+        return t.sym_code.astype(np.int32), t.sym_len.astype(np.int32)
+    code = rng.integers(0, 1 << 20, 256).astype(np.int32)
+    if kind == "16bit":
+        return code, np.full(256, 16, np.int32)
+    length = rng.integers(1, 17, 256).astype(np.int32)
+    length[::3] = 0
+    return code, length
+
+
+@pytest.mark.parametrize("aligned", [True, False])
+@pytest.mark.parametrize("kind", ["corpus", "16bit", "absent"])
+def test_pack_bytes_huffman_chunks_tables_and_lengths(cuda, kind, aligned):
+    """K6's tiles are 2048 positions, a warp each, eight a block:
+    lengths 0, 1, inside a tile, on a tile and a block edge, one past
+    it, and the whole row, with sparse codes (tiles of fewer than 32
+    bits) in the last rows, on an output buffer that was not zeroed."""
+    n = 3 * 16384 + 2048
+    rng = np.random.default_rng(21)
+    data = rng.integers(0, 256, (8, n), dtype=np.uint8)
+    data[1] = np.repeat(rng.integers(0, 3, n, dtype=np.uint8),
+                        rng.integers(1, 50, n))[:n]
+    code, length = _k6_table(kind, data)
+    data[6:] = 0
+    data[6:, ::997] = 1 + np.arange(2)[:, None]  # a code every 997
+    length[0] = 0
+    lengths = np.array([n, 0, 1, 2048 + 513, 2048 * 3, 16384, 16384 + 1,
+                        n - 640 - 8], np.int32)
+    d, ln, c, l = _to(cuda, data, lengths, code, length)
+    if not aligned:
+        d = _unaligned(d, 8)
+    _dirty(cuda)
+    got = pack_bytes_huffman_chunks(d, ln, c, l)
+    _equal(got, pack_bytes_huffman_chunks_plain(d, ln, c, l))
+    _zero_past_stream(*got)
+
+
+@pytest.mark.parametrize("shape", [(0, 16384), (3, 0)])
+def test_chunk_packers_without_a_launch_return_zeros(cuda, shape):
+    """c == 0 or n == 0 launches nothing, so the outputs must be zeros
+    that no kernel wrote."""
+    data = torch.zeros(shape, dtype=torch.uint8, device=cuda)
+    lengths = torch.full(shape[:1], shape[1], dtype=torch.int32,
+                         device=cuda)
+    t = device_tables(None, cuda)
+    before = (rle_pack_chunks.launches, pack_bytes_huffman_chunks.launches)
+    _dirty(cuda)
+    for got, want in (
+        (rle_pack_chunks(data, lengths),
+         rle_pack_chunks_plain(data.cpu(), lengths.cpu())),
+        (pack_bytes_huffman_chunks(data, lengths, t["sym_code"],
+                                   t["sym_len"]),
+         pack_bytes_huffman_chunks_plain(data.cpu(), lengths.cpu(),
+                                         t["sym_code"].cpu(),
+                                         t["sym_len"].cpu())),
+    ):
+        _equal([g.cpu() for g in got], want)
+        assert not bool(got[0].any()) and not bool(got[1].any())
+    assert (rle_pack_chunks.launches,
+            pack_bytes_huffman_chunks.launches) == before
 
 
 def _as_tuple(x):
@@ -497,6 +611,29 @@ def test_decode_warps_of_rle_raw_segments(cuda, alphabet):
         args, fast, off, n = _decode_args(cuda, container, codec, shift)
         got = _decode_equal(args, fast, off, n)
         assert got.cpu().numpy().tobytes() == data
+
+
+def test_decode_flipped_containers_complete_or_raise(cuda):
+    """K4 (``decompress_device`` on the card) on the hardening suite's 32
+    payload flips: each completes or raises, and the card reports no
+    fault after it. The port's two decoders may disagree on a flipped
+    frame (the host decoder raises on some that the device path decodes
+    to other bytes), as the reference's do, so K4 is held to neither."""
+    data, comp = hardening_container(cuda)
+    codec = BlockCodec(device=cuda)
+    assert codec.decompress_device(comp) == data
+    done = 0
+    for bad in flipped(comp):
+        try:
+            out = codec.decompress_device(bad)
+        except Exception:
+            torch.cuda.synchronize()  # a fault on the card raises here
+            continue
+        torch.cuda.synchronize()
+        assert isinstance(out, bytes)
+        done += 1
+    assert done > 0
+    assert codec.decompress_device(comp) == data
 
 
 @pytest.mark.parametrize("aligned", [True, False])

@@ -1,25 +1,27 @@
-// K5: chunked token pack, and K6: chunked Huffman lookup + pack.
+// K5: chunked token pack.
 //
 // Replaces tudocomp_tpu/ops/bitpack_pallas.py:_pack_kernel (entry
-// pack_tokens_chunks) and _pack_huffman_kernel (entry
-// pack_bytes_huffman_chunks). Per chunk c, the tokens of positions
-// 0..n-1 — K5: (values, lens) with lens <= 32; K6: the canonical code
-// and length of each data byte, zero-length at or past lengths[c] — are
-// packed MSB-first into big-endian u32 words, and bits[c] is their total.
+// pack_tokens_chunks). Per chunk c, the tokens (values, lens) of
+// positions 0..n-1, lens <= 32, are packed MSB-first into big-endian u32
+// words, and bits[c] is their total.
 //
 // On the TPU the grid walks a chunk's tiles in order and carries the bit
 // offset from tile to tile; the in-tile offsets and the word placement
 // are matmuls. Blocks on Hopper run in no order, so the carry becomes a
 // scan over tiles, in three launches: (1) each block of 2048 positions
-// sums its code lengths; (2) one block per chunk scans the tile sums
+// sums its token lengths; (2) one block per chunk scans the tile sums
 // into each tile's starting bit; (3) each block scans its lengths again,
 // ORs its tokens (at most two words each) into shared memory with
 // atomicOr, and writes its words out: plain stores for the words only it
 // touches, atomicOr for its first and last word, which it may share with
 // a neighbouring tile (bit ranges are disjoint, so OR is exact). The
-// output must be zero on entry. K6 looks codes up in a 256-entry
-// shared-memory table. Both are bound by device memory: K5 reads its
-// 8 bytes per token twice, K6 its byte twice, and both write the stream.
+// output must be zero on entry. K5 is bound by device memory: it reads
+// its 8 bytes per token twice and writes the stream.
+//
+// The HUFF branches are K6's first body (a 256-entry shared table in
+// front of the same placement). K6 now has its own kernels
+// (csrc/huff_chunk_pack.cu) and nothing instantiates them; they stay so
+// that K5, the control K6 and K7 are held against, keeps its code.
 #include "common.cuh"
 
 namespace {
@@ -194,22 +196,4 @@ extern "C" int tdc_pack_tokens_chunks(const void* values, const void* lens,
   a.cap = cap;
   a.T = (n + TILE - 1) / TILE;
   return pack_chunks<false>(a, chunks, (int32_t*)bits, (cudaStream_t)stream);
-}
-
-extern "C" int tdc_pack_huffman_chunks(const void* data, const void* lengths,
-                                       const void* sym_code,
-                                       const void* sym_len, void* words,
-                                       void* bits, void* scratch, int chunks,
-                                       int n, int cap, void* stream) {
-  Args a{};
-  a.data = (const uint8_t*)data;
-  a.lengths = (const int32_t*)lengths;
-  a.sym_code = (const int32_t*)sym_code;
-  a.sym_len = (const int32_t*)sym_len;
-  a.words = (uint32_t*)words;
-  a.scratch = (int32_t*)scratch;
-  a.n = n;
-  a.cap = cap;
-  a.T = (n + TILE - 1) / TILE;
-  return pack_chunks<true>(a, chunks, (int32_t*)bits, (cudaStream_t)stream);
 }

@@ -88,32 +88,6 @@ __device__ __forceinline__ void load(uint32_t (&v)[4], const uint32_t* src,
   }
 }
 
-// keeps v in a register: the compiler may not recompute it in the loop
-__device__ __forceinline__ uint32_t pinned(uint32_t v) {
-#ifdef __CUDA_ARCH__
-  asm volatile("" : "+r"(v));
-#endif
-  return v;
-}
-
-// stages word `word` of the stream at word `at` of the warp's buffer
-// (shared address buf_s, generic pointer buf) where `full`: a predicated
-// store, not a branch, which every lane of the warp would take in turn
-// (padding the buffer against bank conflicts cost more than it saved)
-__device__ __forceinline__ void stage(uint32_t buf_s, uint32_t* buf, int at,
-                                      uint32_t word, bool full) {
-#ifdef __CUDA_ARCH__
-  asm volatile(
-      "{\n\t.reg .pred p;\n\tsetp.ne.b32 p, %2, 0;\n\t"
-      "@p st.shared.u32 [%0], %1;\n\t}"
-      :
-      : "r"(buf_s + 4u * (uint32_t)at), "r"(word), "r"((int)full)
-      : "memory");
-#else
-  if (full) buf[at] = word;
-#endif
-}
-
 // the table entries (code << 8 | length) of the lane's 16 symbols of
 // one slice; with MASK, 0 past its first `live`
 template <bool BYTES, bool MASK>
@@ -189,7 +163,8 @@ huff_pack_kernel(const uint32_t* __restrict__ words_in,
   uint32_t ck = 0;     // the probes' checksum
   int base = 0;        // bits of the slices before
   uint32_t* buf = staged[warp];
-  const uint32_t buf_s = pinned((uint32_t)__cvta_generic_to_shared(buf));
+  const uint32_t buf_s =
+      tdc::pinned((uint32_t)__cvta_generic_to_shared(buf));
   uint32_t carry = 0;  // OR of the left-over bits ending in word carry_at
   int carry_at = 0;
 #pragma unroll
@@ -243,7 +218,7 @@ huff_pack_kernel(const uint32_t* __restrict__ words_in,
       nb += l;
       const bool full = nb >= 32;
       nb -= full ? 32 : 0;
-      stage(buf_s, buf, at, (uint32_t)(acc >> nb), full);
+      tdc::stage(buf_s, buf, at, (uint32_t)(acc >> nb), full);
       at += full;
     }
     // left-over bits at the top of word `at`, OR-ed over the lanes (of
