@@ -36,7 +36,29 @@ It needs one CUDA device and exits non-zero without one. Phases:
    path's 16 MiB batch: launch counts of that run, then each variant
    against its plain version at both sizes. The stage probes take K2's
    own inputs there: K1's escape-selected streams, their counts and the
-   table of the sampled histogram.
+   table of the sampled histogram;
+8. ``entry()`` (``tudocomp_tpu_torch/entry.py``, the counterpart of
+   ``__graft_entry__.entry``): its ``fn(*args)`` on the card, words,
+   bits and histogram equal to the same call on the CPU (the plain
+   versions), with the launches of that call;
+9. the front end at full width: the 256 MiB corpus in a temporary file
+   through the port's ``cli.main``, in-process: ``-a tbc2`` writes the
+   header and phase 3's container, ``-d`` (``dec=auto``, K4 on the card)
+   restores the input, and so do ``-a "tbc2(dec=host)"`` with ``-d``,
+   ``--blocks 64M`` with ``--threads 1`` and ``--threads 2`` (the same
+   bytes), and ``--stats`` (the phase tree); launch counts of the
+   ``tbc2`` round trip, and each call's wall time;
+10. the device suffix array and BWT (``ops/suffix.py``) on 64 MiB of
+   ``bench.make_corpus``, sentineled as ``bwt`` gets it: the SA equal to
+   the host SA-IS, ``suffix_array_isa_ranks(L=32)`` giving the same SA
+   and an ISA that inverts it, the BWT equal to ``text[(sa - 1) mod n]``,
+   the inverse BWT restoring the text; each op's time (CUDA events), the
+   doubling rounds, the peak device memory, the host SA-IS time; then
+   ``-a "bwt(device=true):tbc2"`` through the CLI round-trips those
+   64 MiB and writes the payload of ``-a "bwt:tbc2"`` (the host path).
+
+Every time of phases 8-10 is printed with the card's name and power
+limit.
 
 Each kernel's line carries its bound: the bytes it must move (inputs
 read once, outputs written once, counted from this run's data) over the
@@ -291,10 +313,10 @@ def words_and_counts(rows: int, width: int) -> int:
     return rows * width + rows
 
 
-def main_path(corpus, dev, check: Checker) -> dict:
+def main_path(corpus, dev, check: Checker) -> tuple[dict, bytes]:
     """Phase 3: the 256 MiB round trip through the codec's entry points,
     counting kernel launches; then K4 at that shape alone. Returns the
-    launch counts of the round trip."""
+    launch counts of the round trip and the container."""
     from tudocomp_tpu_torch import BlockCodec
     from tudocomp_tpu_torch.ops import launch_counts, reset_launches
 
@@ -325,7 +347,7 @@ def main_path(corpus, dev, check: Checker) -> dict:
           f"{dec['decode']:.3f} s ({gb / dec['decode']:.3f} GB/s)")
     print(f"  host decode {t_host:.3f} s ({gb / t_host:.3f} GB/s)")
     check_decode("decode@256MiB", codec, container, data, dev, check)
-    return counts
+    return counts, container
 
 
 def cross_device(corpus, dev) -> None:
@@ -596,6 +618,242 @@ def probe_path(corpus, dev, check: Checker) -> tuple[dict, list]:
     return counts, runs[""]
 
 
+def entry_phase(dev, card: str) -> dict:
+    """Phase 8: ``entry()``'s step on the card against the same call on
+    the CPU. Returns the launch counts of the card's call."""
+    import torch
+
+    from tudocomp_tpu_torch.entry import entry
+    from tudocomp_tpu_torch.ops import launch_counts, reset_launches
+
+    fn, args = entry(device=dev)
+    reset_launches()
+    t0 = time.perf_counter()
+    got = fn(*args)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = launch_counts()
+    cfn, cargs = entry(device="cpu")
+    for name, g, w in zip(("words", "bits", "hist"), got, cfn(*cargs)):
+        if not torch.equal(g.cpu(), w):
+            raise AssertionError(f"entry(): {name} differ from the CPU's")
+    print(f"entry(): words, bits and histogram equal the CPU's; first call "
+          f"{wall * 1e3:.3f} ms ({card})")
+    return counts
+
+
+def _cli(argv) -> float:
+    """``cli.main(argv)`` in this process; raises unless it returns 0.
+    Returns its wall time in seconds."""
+    from tudocomp_tpu_torch import cli
+
+    t0 = time.perf_counter()
+    rc = cli.main(argv)
+    wall = time.perf_counter() - t0
+    if rc != 0:
+        raise AssertionError(f"cli.main{argv} returned {rc}")
+    return wall
+
+
+def _same_file(path: str, data: bytes, what: str) -> None:
+    with open(path, "rb") as f:
+        if f.read() != data:
+            raise AssertionError(f"{what} differs")
+
+
+TBC2_HEADER = b"tbc2(offset=0, min_code_len=3, dec=auto)%"
+
+
+def front_end(corpus, container: bytes, card: str) -> dict:
+    """Phase 9: the port's CLI on the 256 MiB corpus, in-process. Returns
+    the launch counts of the ``tbc2`` compress and decompress."""
+    import contextlib
+    import io
+    import os
+    import tempfile
+    import tracemalloc
+
+    import torch
+
+    from tudocomp_tpu_torch.ops import launch_counts, reset_launches
+
+    data = corpus.tobytes()
+    mib = len(data) // MIB
+    with tempfile.TemporaryDirectory() as td:
+        src = os.path.join(td, "in.bin")
+        with open(src, "wb") as f:
+            f.write(data)
+
+        def run(tag, *argv) -> str:
+            out = os.path.join(td, tag)
+            wall = _cli([*argv, "-f", "-o", out])
+            shown = " ".join(os.path.basename(a) if a.startswith(td) else a
+                             for a in argv)
+            print(f"  {shown}: "
+                  f"{wall:.3f} s, {len(data) / 1e9 / wall:.3f} GB/s of the "
+                  f"{mib} MiB ({card})")
+            return out
+
+        reset_launches()
+        c1 = run("tbc2.tdc", src, "-a", "tbc2")
+        d1 = run("tbc2.dec", c1, "-d")
+        torch.cuda.synchronize()
+        counts = launch_counts()
+        _same_file(c1, TBC2_HEADER + container,
+                   "-a tbc2 against the header and phase 3's container")
+        _same_file(d1, data, "-d of -a tbc2 against the input")
+        for path in (c1, d1):
+            os.remove(path)
+        c2 = run("host.tdc", src, "-a", "tbc2(dec=host)")
+        _same_file(run("host.dec", c2, "-d"), data,
+                   "-d of -a tbc2(dec=host) against the input")
+        blocks = {}
+        for threads in ("1", "2"):
+            c = run(f"blocks{threads}.tdc", src, "-a", "tbc2", "--blocks",
+                    "64M", "--threads", threads)
+            _same_file(run(f"blocks{threads}.dec", c, "-d"), data,
+                       f"-d of --blocks 64M --threads {threads}")
+            with open(c, "rb") as f:
+                blocks[threads] = f.read()
+        if blocks["1"] != blocks["2"]:
+            raise AssertionError("--threads 2 wrote other bytes than 1")
+        print(f"  {mib} MiB: -a tbc2 == header + phase 3's container; -d, "
+              f"tbc2(dec=host), --blocks 64M (--threads 1 == --threads 2, "
+              f"{len(blocks['1'])} bytes) restore the input")
+        err = io.StringIO()
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
+        with contextlib.redirect_stderr(err):
+            wall = _cli([src, "-a", "tbc2", "-f", "-o",
+                         os.path.join(td, "stats.tdc"), "--stats"])
+        peak = torch.cuda.max_memory_allocated() - base
+        tracemalloc.stop()  # --stats started it; the CLI's process ends
+    text = err.getvalue()
+    tree = json.loads(text[text.index("{"): text.rindex("}") + 1])
+    (phase,) = (p for p in tree["sub"] if p["title"] == "compress")
+    keys = {"title", "timeDelta", "memPeak", "devMemPeak", "stats", "sub"}
+    if set(tree) != keys or set(phase) != keys:
+        raise AssertionError(f"--stats keys {sorted(tree)}")
+    print(f"  --stats: {wall:.3f} s ({card}); compress phase "
+          f"{phase['timeDelta']:.1f} ms, memPeak {phase['memPeak']} B, "
+          f"devMemPeak {phase['devMemPeak']} B (live device bytes at the "
+          f"phase's exit less at its entry); the call's peak device "
+          f"memory above its start {peak} B")
+    from tudocomp_tpu_torch.stats import StatPhase
+
+    with StatPhase("root") as root:
+        with StatPhase("keep") as keep:
+            kept = torch.empty(MIB, dtype=torch.uint8, device="cuda")
+    if not (keep.dev_mem_peak >= kept.numel()
+            and root.dev_mem_peak >= keep.dev_mem_peak):
+        raise AssertionError(f"devMemPeak of a phase that keeps 1 MiB on "
+                             f"the card: {keep.dev_mem_peak}, parent "
+                             f"{root.dev_mem_peak}")
+    print(f"  StatPhase keeping 1 MiB on the card: devMemPeak "
+          f"{keep.dev_mem_peak} B, bubbled to its parent")
+    return counts
+
+
+def timed(fn):
+    """``fn()``'s result, its time in ms (CUDA events, one call) and the
+    device memory it allocated at its peak above its start."""
+    import torch
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    out = fn()
+    end.record()
+    torch.cuda.synchronize()
+    return (out, start.elapsed_time(end),
+            torch.cuda.max_memory_allocated() - base)
+
+
+def suffix_phase(dev, card: str) -> None:
+    """Phase 10: the device SA, ISA and BWT of 64 MiB of the corpus
+    against the host's, then ``bwt(device=true):tbc2`` through the CLI."""
+    import os
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    from bench import make_corpus
+    from tudocomp_tpu_torch import native
+    from tudocomp_tpu_torch.io.restrictions import escape
+    from tudocomp_tpu_torch.meta import InputRestrictions
+    from tudocomp_tpu_torch.ops import suffix
+
+    raw = make_corpus(64 * MIB).tobytes()
+    # as bwt gets it: 0 bytes escaped, one 0 sentinel appended
+    text = np.frombuffer(escape(raw, InputRestrictions((), True)), np.uint8)
+    n = text.size
+    t0 = time.perf_counter()
+    sa_host = native.suffix_array(text)
+    t_host = time.perf_counter() - t0
+    td = torch.from_numpy(text.copy()).to(dev)
+    info = {}
+    sa, ms_sa, mem_sa = timed(lambda: suffix.suffix_array_device(td, info))
+    if not np.array_equal(sa.cpu().numpy(), sa_host):
+        raise AssertionError("device SA differs from the host SA-IS")
+    rinfo = {}
+    (sa2, isa2, ranks), ms_r, mem_r = timed(
+        lambda: suffix.suffix_array_isa_ranks(td, L=32, full=True,
+                                              info=rinfo))
+    iota = torch.arange(n, dtype=torch.int32, device=dev)
+    if not torch.equal(sa2, sa) or not torch.equal(isa2[sa.long()], iota):
+        raise AssertionError("suffix_array_isa_ranks: SA or ISA wrong")
+    if sorted(ranks) != [4, 8, 16, 32]:
+        raise AssertionError(f"rank levels {sorted(ranks)}")
+    del sa2, isa2, ranks
+    isa, ms_isa, mem_isa = timed(lambda: suffix.isa_device(sa))
+    bwt, ms_bwt, mem_bwt = timed(lambda: suffix.bwt_device(td, isa))
+    if not torch.equal(bwt, td[(sa.long() - 1) % n]):
+        raise AssertionError("device BWT differs from text[(sa - 1) mod n]")
+    del isa, sa
+    un, ms_un, mem_un = timed(lambda: suffix.unbwt_device(bwt))
+    if not torch.equal(un, td[:-1]):
+        raise AssertionError("unbwt_device did not restore the text")
+    del un, bwt
+    print(f"  {n} bytes ({card}): host SA-IS {t_host:.3f} s")
+    for name, ms, mem, extra in (
+        ("suffix_array_device", ms_sa, mem_sa,
+         f", {info['rounds']} doubling rounds"),
+        ("suffix_array_isa_ranks(L=32, full=True)", ms_r, mem_r,
+         f", {rinfo['rounds']} doubling rounds"),
+        ("isa_device", ms_isa, mem_isa, ""),
+        ("bwt_device", ms_bwt, mem_bwt, ""),
+        ("unbwt_device", ms_un, mem_un, ""),
+    ):
+        print(f"  {name}: {ms:.3f} ms, peak device memory {mem / MIB:.1f} "
+              f"MiB above its start{extra} ({card})")
+    print("  SA == host SA-IS; isa_ranks SA == SA, ISA inverts it; BWT == "
+          "text[(sa - 1) mod n]; unBWT restores the text")
+    with tempfile.TemporaryDirectory() as tmp:
+        src = os.path.join(tmp, "in.bin")
+        with open(src, "wb") as f:
+            f.write(raw)
+        outs = {}
+        for algo in ("bwt(device=true):tbc2", "bwt:tbc2"):
+            out = os.path.join(tmp, algo.replace(":", "_") + ".tdc")
+            wall = _cli([src, "-a", algo, "-f", "-o", out])
+            print(f"  -a {algo}: {wall:.3f} s ({card})")
+            with open(out, "rb") as f:
+                outs[algo] = f.read().split(b"%", 1)
+        dec = os.path.join(tmp, "dev.dec")
+        wall = _cli([os.path.join(tmp, "bwt(device=true)_tbc2.tdc"), "-d",
+                     "-f", "-o", dec])
+        print(f"  -d of bwt(device=true):tbc2: {wall:.3f} s ({card})")
+        _same_file(dec, raw, "-d of bwt(device=true):tbc2")
+    if outs["bwt(device=true):tbc2"][1] != outs["bwt:tbc2"][1]:
+        raise AssertionError("bwt(device=true):tbc2 differs from bwt:tbc2")
+    print(f"  {len(raw) // MIB} MiB: bwt(device=true):tbc2 round-trips and "
+          f"writes the payload of bwt:tbc2")
+
+
 def require_launched(counts: dict, names) -> dict:
     """The path's launch counts; raises if one of its kernels never ran."""
     got = {k: counts[k] for k in names}
@@ -622,7 +880,7 @@ def main() -> int:
     print("== phase 2: kernels vs plain versions")
     kernels_vs_plain(corpus, dev, check)
     print("== phase 3: main path")
-    counts = main_path(corpus, dev, check)
+    counts, container = main_path(corpus, dev, check)
     print("== phase 4: CUDA vs CPU container")
     cross_device(corpus, dev)
     from tudocomp_tpu_torch.ops import CHUNK_KERNELS, CODEC_KERNELS
@@ -648,6 +906,18 @@ def main() -> int:
     probe_launches = require_launched(probe_counts, PROBE_KERNELS)
     print("   launch counts", json.dumps(probe_launches))
     launches.update(probe_launches)
+    print("== phase 8: entry()")
+    entry_counts = require_launched(entry_phase(dev, card),
+                                    ("rle_select", "histogram_rows",
+                                     "huff_select"))
+    print("   launch counts", json.dumps(entry_counts))
+    print("== phase 9: the front end (cli.main) at 256 MiB")
+    cli_counts = require_launched(front_end(corpus, container, card),
+                                  CODEC_KERNELS)
+    print("   launch counts of -a tbc2 and -d", json.dumps(cli_counts))
+    del container
+    print("== phase 10: device suffix array and BWT at 64 MiB")
+    suffix_phase(dev, card)
     sources = dict(SOURCES)
     sources.update({c["name"]: (c["source"], c["replaces"]) for c in probes})
     loaded = [m for m in ("jax", "tudocomp_tpu") if m in sys.modules]

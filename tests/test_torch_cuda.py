@@ -694,3 +694,98 @@ def test_histogram_rows_matches_plain(cuda, lo, hi, aligned):
         histogram_rows(words, lens_t, slice(2, None, step), out)
         assert torch.equal(out, histogram_rows_plain(words, lens_t,
                                                      slice(2, None, step)))
+
+
+# -- the front end on the card: entry(), the CLI, the suffix ops ----------
+
+def _front_text(n: int, seed: int) -> bytes:
+    rng = np.random.default_rng(seed)
+    words = [b"tudocomp ", b"suffix ", b"array ", b"aaaaaaaa ", b"bwt "]
+    return b"".join(words[i] for i in
+                    rng.integers(0, len(words), n // 4))[:n]
+
+
+def test_entry_on_card_matches_cpu(cuda):
+    from tudocomp_tpu_torch.entry import entry
+
+    fn, args = entry()
+    assert all(a.device.type == "cuda" for a in args)
+    reset_launches()
+    got = fn(*args)
+    torch.cuda.synchronize()
+    launched = {k: v for k, v in launch_counts().items() if v}
+    assert launched == {"rle_select": 1, "histogram_rows": 1,
+                        "huff_select": 1}, launched
+    cfn, cargs = entry(device="cpu")
+    _equal([g.cpu() for g in got], cfn(*cargs))
+
+
+@pytest.mark.parametrize("algo", ["tbc2", "tbc2(dec=host)",
+                                  "bwt(device=true)",
+                                  "bwt(device=true):tbc2"])
+def test_cli_on_card_matches_cpu(cuda, algo):
+    from tudocomp_tpu_torch import cli
+
+    data = _front_text(40 << 10, seed=1)
+    out = cli.compress(algo, data)
+    assert out == cli.compress(algo, data, device="cpu")
+    assert cli.decompress(out) == data
+
+
+@pytest.mark.parametrize("threads", [2, 4])
+def test_cli_blocks_threads_on_card(cuda, tmp_path, threads):
+    from tudocomp_tpu_torch import cli
+
+    src = tmp_path / "in.bin"
+    data = _front_text(300 << 10, seed=2)
+    src.write_bytes(data)
+    args = [str(src), "-a", "tbc2", "--blocks", "32Ki", "-f"]
+    assert cli.main([*args, "-o", str(tmp_path / "one")]) == 0
+    assert cli.main([*args, "--threads", str(threads), "-o",
+                     str(tmp_path / "many")]) == 0
+    assert (tmp_path / "many").read_bytes() == (tmp_path / "one").read_bytes()
+    assert cli.main([str(tmp_path / "many"), "-d", "-f", "--threads",
+                     str(threads), "-o", str(tmp_path / "dec")]) == 0
+    assert (tmp_path / "dec").read_bytes() == data
+
+
+def test_stat_phase_dev_mem_peak_reads_the_card(cuda):
+    """devMemPeak is the live device bytes at a phase's exit less those
+    at its entry, and bubbles up to the parent."""
+    from tudocomp_tpu_torch.stats import StatPhase
+
+    torch.empty(1, device=cuda)  # CUDA initialised before either phase
+    with StatPhase("root") as root:
+        with StatPhase("keep") as keep:
+            kept = torch.empty(1 << 20, dtype=torch.uint8, device=cuda)
+        with StatPhase("free") as free:
+            torch.empty(1 << 20, dtype=torch.uint8, device=cuda)
+    assert keep.dev_mem_peak >= kept.numel()
+    assert free.dev_mem_peak == 0
+    assert root.dev_mem_peak >= keep.dev_mem_peak
+    assert root.to_json()["sub"][0]["devMemPeak"] == keep.dev_mem_peak
+
+
+@pytest.mark.parametrize("n", [1, 7, 1000, 70000])
+def test_suffix_ops_on_card_match_cpu(cuda, n):
+    from tudocomp_tpu_torch.ops import suffix
+
+    text = np.frombuffer(_front_text(n, seed=n)[: n - 1] + b"\0", np.uint8)
+    t_cpu = torch.from_numpy(text.copy())
+    t_gpu = t_cpu.to(cuda)
+    sa = suffix.suffix_array_device(t_gpu)
+    assert torch.equal(sa.cpu(), suffix.suffix_array_device(t_cpu))
+    isa = suffix.isa_device(sa)
+    bwt = suffix.bwt_device(t_gpu, isa)
+    assert torch.equal(bwt.cpu(), suffix.bwt_device(t_cpu, isa.cpu()))
+    assert suffix.unbwt_device(bwt).cpu().numpy().tobytes() \
+        == text[:-1].tobytes()
+    for L in (8, 32):
+        for full in (True, False):
+            got = suffix.suffix_array_isa_ranks(t_gpu, L=L, full=full)
+            want = suffix.suffix_array_isa_ranks(t_cpu, L=L, full=full)
+            assert torch.equal(got[0].cpu(), want[0])
+            assert torch.equal(got[1].cpu(), want[1])
+            assert sorted(got[2]) == sorted(want[2])
+            for q in want[2]:
+                assert torch.equal(got[2][q].cpu(), want[2][q])

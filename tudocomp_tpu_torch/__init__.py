@@ -3,7 +3,10 @@ chunked bit packers, with hand-written Hopper kernels (``csrc/``),
 byte-compatible with the JAX package ``tudocomp_tpu``. Imports torch and
 numpy, never JAX and nothing of the JAX package: the host code it needs
 (bit I/O, the Huffman table, vbyte, the TBC2 host decoder) has its own
-copy here."""
+copy here. Its front end (registry, CLI, stats) is
+``python -m tudocomp_tpu_torch.cli``."""
+
+__version__ = "0.1.0"
 
 from tudocomp_tpu_torch.models import BlockCodec, device_tables
 

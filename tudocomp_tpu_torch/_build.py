@@ -3,8 +3,8 @@
 Two shared libraries with a plain C interface, loaded with ``ctypes``:
 
 - the CUDA kernels (``csrc/*.cu``), compiled by ``nvcc`` for ``sm_90a``;
-- the host TBC2 parser and decoder (``csrc/host/*.cpp``), compiled by
-  the host C++ compiler.
+- the host TBC2 parser and decoder, suffix array and BWT decode
+  (``csrc/host/*.cpp``), compiled by the host C++ compiler.
 
 Each is built at first use, from the package's own sources, into
 ``csrc/build/`` (git-ignored), and is keyed by a hash of its sources and
@@ -78,8 +78,8 @@ _SIGNATURES = {
     "tdc_probe_place": [_P, _P, _P, _I, _I, _I, _P],
 }
 
-#: host entry points (``csrc/host/tbc2.cpp``): name -> argtypes; each
-#: returns int64
+#: host entry points (``csrc/host/tbc2.cpp``, ``csrc/host/suffix.cpp``):
+#: name -> argtypes; each returns int64
 _HOST_SIGNATURES = {
     # payload, payload_len, count, lut_sym, lut_len, k, out
     "tdc_huffman_decode": [_P, _L, _L, _P, _P, _I, _P],
@@ -89,6 +89,11 @@ _HOST_SIGNATURES = {
     # seg, orig_len, offset, out
     "tdc_tbc2_decode": [_P, _P, _P, _P, _P, _L, _L, _P, _P, _I, _L, _L,
                         _L, _P],
+    # text, n, sa (i32 / i64)
+    "tdc_suffix_array_sais32": [_P, _L, _P],
+    "tdc_suffix_array_sais": [_P, _L, _P],
+    # bwt, out, n
+    "tdc_bwt_decode": [_P, _P, _L],
 }
 
 _lock = threading.Lock()

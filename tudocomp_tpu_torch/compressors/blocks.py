@@ -1,0 +1,308 @@
+"""Generic block container: constant-memory, restartable, block-parallel
+compression for ANY registered compressor.
+
+The reference streams single-pass compressors through ``as_stream()``
+(``io/Input.hpp:199-208``) but runs every SA/grammar family whole-buffer.
+Here the long-input axis is handled uniformly instead: ``blocks(inner)``
+splits the input into fixed-size blocks and runs a *fresh* inner
+compressor per block (the reference's own dict-reset precedent,
+``LZ78Compressor.hpp:110-116``, generalized). Every block is escaped,
+compressed and framed independently, which buys three properties the
+reference lacks:
+
+- **constant memory**: ``compress_stream`` / ``decompress_stream`` hold
+  one block at a time — peak RSS is O(block size), not O(input).
+- **restartability** (SURVEY §5 failure semantics): frames are
+  self-delimiting (vbyte lengths), so a crashed job's partial output
+  identifies exactly which blocks completed; ``compress_stream(...,
+  resume=True)`` truncates any torn trailing frame and continues from
+  the first missing block.
+- **block parallelism**: frames decode independently, so a multi-chip
+  or multi-host job can scatter blocks without coordination (the same
+  layout ``parallel/pipeline.py`` uses for the flagship codec), and
+  ``workers=N`` runs N blocks concurrently on host threads with
+  frames still written in order — peak memory becomes O(N x block
+  size). Speedup is bounded by the inner compressor's GIL-releasing
+  (native-kernel) fraction.
+
+Container: ``TBK1`` magic, vbyte(block_size), then per block
+vbyte(raw_len) vbyte(payload_len) payload. No end marker — EOF ends the
+frame list (a torn frame is detected by a short read).
+"""
+
+from __future__ import annotations
+
+import io
+
+from tudocomp_tpu_torch.compressors.base import Compressor
+from tudocomp_tpu_torch.io.restrictions import escape, unescape
+from tudocomp_tpu_torch.meta import Meta
+from tudocomp_tpu_torch.stats import StatPhase
+from tudocomp_tpu_torch.utils.vbyte import write_vbyte
+
+MAGIC = b"TBK1"
+
+#: default block size: 16 MiB
+DEFAULT_BLOCK = 1 << 24
+
+
+def _read_vbyte_stream(f) -> int | None:
+    """Read one vbyte from a binary stream; None on clean EOF at a
+    frame boundary; raises on EOF inside the number."""
+    value, i = 0, 0
+    while True:
+        b = f.read(1)
+        if not b:
+            if i == 0:
+                return None
+            raise EOFError("torn vbyte in block container")
+        byte = b[0]
+        value |= (byte & 0x7F) << (7 * i)
+        i += 1
+        if not byte & 0x80:
+            return value
+
+
+class BlocksCompressor(Compressor):
+    """``blocks(inner, b=N)`` — block-wise application of ``inner``."""
+
+    manages_sub_restrictions = True
+
+    @classmethod
+    def meta(cls):
+        m = Meta(
+            "compressor", "blocks",
+            "Constant-memory restartable block container around any "
+            "compressor",
+        )
+        m.option_submeta("inner", "compressor")
+        m.option_dynamic("b", DEFAULT_BLOCK)
+        m.option_dynamic("workers", 1, runtime=True)
+        return m
+
+    # -- inner plumbing ------------------------------------------------------
+
+    def _block_size(self) -> int:
+        b = self.env.option("b").as_int()
+        if b <= 0:
+            raise ValueError("blocks: block size must be positive")
+        return b
+
+    def _inner(self):
+        """Fresh inner compressor + its restrictions (fresh per block:
+        block-local sequential state, the dict-reset precedent)."""
+        comp = self.env.instantiate("inner")
+        reg = self.env.registry
+        if reg is not None:
+            restr = reg.restrictions_of(comp.env)
+        else:
+            restr = comp.env.cls.meta().restrictions
+        return comp, restr
+
+    def _compress_block(self, raw: bytes) -> bytes:
+        comp, restr = self._inner()
+        return comp.compress(escape(raw, restr))
+
+    def _decompress_block(self, payload: bytes) -> bytes:
+        comp, restr = self._inner()
+        return unescape(comp.decompress(payload), restr)
+
+    # -- whole-buffer API ----------------------------------------------------
+
+    def compress(self, data: bytes) -> bytes:
+        out = io.BytesIO()
+        self.compress_stream(io.BytesIO(data), out)
+        return out.getvalue()
+
+    def decompress(self, data: bytes) -> bytes:
+        out = io.BytesIO()
+        self.decompress_stream(io.BytesIO(data), out)
+        return out.getvalue()
+
+    # -- streaming API (constant memory; used by the CLI) --------------------
+
+    def compress_stream(self, src, dst, *, resume: bool = False) -> int:
+        """Read blocks from ``src``, append frames to ``dst``. Returns
+        the number of blocks written this call.
+
+        ``resume=True``: ``dst`` must be positioned at 0 of an existing
+        partial container (opened r+b); completed frames are kept, a
+        torn trailing frame is truncated, and ``src`` is fast-forwarded
+        past the blocks already done.
+        """
+        bs = self._block_size()
+        done = 0
+        if resume:
+            bs_existing, done, end = self._scan_frames(dst, dst.tell())
+            if bs_existing is not None and bs_existing != bs:
+                raise ValueError(
+                    f"blocks: resume block size {bs_existing} != {bs}"
+                )
+            dst.seek(end)
+            dst.truncate()
+            skip = done * bs
+            if hasattr(src, "seek"):
+                src.seek(skip)
+            else:  # pragma: no cover - non-seekable resume source
+                while skip > 0:
+                    skip -= len(src.read(min(skip, 1 << 20)))
+            if bs_existing is None:
+                self._write_header(dst, bs)
+        else:
+            self._write_header(dst, bs)
+        workers = max(1, self.env.option("workers").as_int())
+        written = 0
+        if workers > 1:
+            # bounded pipeline: <= workers+1 blocks in flight, frames
+            # written in order (StatPhase is process-global, so the
+            # parallel section is one phase rather than one per block)
+            from collections import deque
+            from concurrent.futures import ThreadPoolExecutor
+
+            with StatPhase(f"blocks x{workers}"), \
+                    ThreadPoolExecutor(workers) as ex:
+                pending: deque = deque()
+                eof = False
+                while True:
+                    while not eof and len(pending) <= workers:
+                        raw = src.read(bs)
+                        if not raw:
+                            eof = True
+                            break
+                        pending.append(
+                            (len(raw),
+                             ex.submit(self._compress_block, raw))
+                        )
+                    if not pending:
+                        break
+                    raw_len, fut = pending.popleft()
+                    payload = fut.result()
+                    frame = bytearray()
+                    write_vbyte(frame, raw_len)
+                    write_vbyte(frame, len(payload))
+                    dst.write(bytes(frame))
+                    dst.write(payload)
+                    dst.flush()  # frame boundary = restart point
+                    written += 1
+            return written
+        while True:
+            raw = src.read(bs)
+            if not raw:
+                break
+            with StatPhase(f"block {done + written}"):
+                payload = self._compress_block(raw)
+            frame = bytearray()
+            write_vbyte(frame, len(raw))
+            write_vbyte(frame, len(payload))
+            dst.write(bytes(frame))
+            dst.write(payload)
+            dst.flush()  # frame boundary = restart point
+            written += 1
+        return written
+
+    def decompress_stream(self, src, dst) -> int:
+        """Decode frames from ``src`` into ``dst``; returns block count."""
+        magic = src.read(4)
+        if magic != MAGIC:
+            raise ValueError("blocks: bad container magic")
+        _read_vbyte_stream(src)  # block size (informational on decode)
+        workers = max(1, self.env.option("workers").as_int())
+        n = 0
+
+        def frames():
+            while True:
+                raw_len = _read_vbyte_stream(src)
+                if raw_len is None:
+                    return
+                payload_len = _read_vbyte_stream(src)
+                if payload_len is None:
+                    raise EOFError("torn frame in block container")
+                payload = src.read(payload_len)
+                if len(payload) != payload_len:
+                    raise EOFError("torn frame in block container")
+                yield raw_len, payload
+
+        if workers > 1:
+            from collections import deque
+            from concurrent.futures import ThreadPoolExecutor
+
+            with StatPhase(f"blocks x{workers}"), \
+                    ThreadPoolExecutor(workers) as ex:
+                pending: deque = deque()
+                it = frames()
+                eof = False
+                while True:
+                    while not eof and len(pending) <= workers:
+                        got = next(it, None)
+                        if got is None:
+                            eof = True
+                            break
+                        pending.append(
+                            (got[0],
+                             ex.submit(self._decompress_block, got[1]))
+                        )
+                    if not pending:
+                        break
+                    raw_len, fut = pending.popleft()
+                    raw = fut.result()
+                    if len(raw) != raw_len:
+                        raise ValueError(
+                            f"blocks: frame {n} decoded {len(raw)} "
+                            f"bytes, expected {raw_len}"
+                        )
+                    dst.write(raw)
+                    n += 1
+            return n
+        for raw_len, payload in frames():
+            with StatPhase(f"block {n}"):
+                raw = self._decompress_block(payload)
+            if len(raw) != raw_len:
+                raise ValueError(
+                    f"blocks: frame {n} decoded {len(raw)} bytes, "
+                    f"expected {raw_len}"
+                )
+            dst.write(raw)
+            n += 1
+        return n
+
+    # -- restart support -----------------------------------------------------
+
+    def _write_header(self, dst, bs: int) -> None:
+        dst.write(MAGIC)
+        hdr = bytearray()
+        write_vbyte(hdr, bs)
+        dst.write(bytes(hdr))
+
+    @staticmethod
+    def _scan_frames(f, start: int = 0):
+        """Scan a (possibly torn) container beginning at ``start``:
+        returns ``(block_size | None, complete_frames, end_offset)``
+        where ``end_offset`` is the file position just past the last
+        complete frame (or ``start`` if even the header is torn)."""
+        f.seek(start)
+        magic = f.read(4)
+        if magic != MAGIC:
+            return None, 0, start
+        try:
+            bs = _read_vbyte_stream(f)
+        except EOFError:
+            return None, 0, start
+        if bs is None:
+            return None, 0, start
+        done, end = 0, f.tell()
+        while True:
+            try:
+                raw_len = _read_vbyte_stream(f)
+                if raw_len is None:
+                    break
+                payload_len = _read_vbyte_stream(f)
+                if payload_len is None:
+                    break
+            except EOFError:
+                break
+            payload = f.read(payload_len)
+            if len(payload) != payload_len:
+                break  # torn frame
+            done += 1
+            end = f.tell()
+        return bs, done, end

@@ -24,6 +24,7 @@ The container bytes do not depend on ``batch_lanes``.
 
 from __future__ import annotations
 
+import os
 import time
 from dataclasses import dataclass
 
@@ -32,6 +33,7 @@ import torch
 
 from tudocomp_tpu_torch import native
 from tudocomp_tpu_torch.coders.huffman import HuffmanTable
+from tudocomp_tpu_torch.device import resolve_device
 from tudocomp_tpu_torch.io.bitio import BitReader, BitWriter
 from tudocomp_tpu_torch.ops.hist import histogram_rows
 from tudocomp_tpu_torch.ops.hufdec import SEG, decode_segments, decoder_tables
@@ -111,15 +113,6 @@ class Encoded:
     bits: np.ndarray       # i32[nseg] payload bits
 
 
-def _device(device) -> torch.device:
-    dev = torch.device(device)
-    if dev.type == "cuda" and not torch.cuda.is_available():
-        raise RuntimeError(f"{dev} requested but CUDA is not available")
-    if dev.type not in ("cpu", "cuda"):
-        raise ValueError(f"unsupported device {dev}")
-    return dev
-
-
 def _upload(arr: np.ndarray, device) -> torch.Tensor:
     return torch.from_numpy(np.ascontiguousarray(arr)).to(device)
 
@@ -133,7 +126,7 @@ class BlockCodec:
     def __init__(self, *, device="cuda", offset: int = 0,
                  batch_lanes: int = BATCH_LANES,
                  min_code_len: int | None = None):
-        self.device = _device(device)
+        self.device = resolve_device(device)
         self.offset = offset
         self.batch_lanes = batch_lanes
         self.min_code_len = min_code_len
@@ -219,8 +212,16 @@ class BlockCodec:
 
     def _min_code_len(self) -> int:
         # min 3 keeps the JAX package's lockstep decode schedule valid
-        # for containers written here; settable up to 8
-        mn = 3 if self.min_code_len is None else int(self.min_code_len)
+        # for containers written here; settable up to 8. TDC_MIN_CODE_LEN
+        # overrides the option, as it does in the JAX package, so both
+        # packages write the same container under the same environment
+        env = os.environ.get("TDC_MIN_CODE_LEN")
+        if env is not None:
+            mn = int(env)
+        elif self.min_code_len is not None:
+            mn = int(self.min_code_len)
+        else:
+            mn = 3
         return min(max(mn, 3), 8)
 
     def _table_from_hist(self, hist, sampled: bool):

@@ -1,9 +1,11 @@
-"""Host TBC2 parse and decode, and the host Huffman decode.
+"""Host TBC2 parse and decode, the host Huffman decode, the host suffix
+array and the host BWT decode.
 
-Bindings of ``csrc/host/tbc2.cpp`` (built by ``_build.build_host``);
-counterparts of ``tudocomp_tpu/native.py``'s ``tbc2_parse``,
-``tbc2_decode`` and ``huffman_decode``. A failed build raises: there is
-no Python fallback.
+Bindings of ``csrc/host/tbc2.cpp`` and ``csrc/host/suffix.cpp`` (built
+by ``_build.build_host``); counterparts of ``tudocomp_tpu/native.py``'s
+``tbc2_parse``, ``tbc2_decode``, ``huffman_decode``, ``suffix_array``
+(its SA-IS) and ``bwt_decode``. A failed build raises: there is no
+Python fallback.
 """
 
 from __future__ import annotations
@@ -93,4 +95,28 @@ def tbc2_decode(data: bytes, counts, flags, poff, pbytes, orig_len: int,
         rets = [run(0, nseg)]
     if any(r < 0 for r in rets):
         raise ValueError("malformed TBC2 payload")
+    return out.tobytes()
+
+
+def suffix_array(text: np.ndarray) -> np.ndarray:
+    """Suffix array of the bytes ``text`` by SA-IS (linear time): int32
+    for n < 2^31, int64 above, as the JAX package's."""
+    t = np.ascontiguousarray(text, np.uint8)
+    if t.size < (1 << 31):
+        out = np.empty(t.size, np.int32)
+        _build.host_lib().tdc_suffix_array_sais32(_ptr(t), t.size, _ptr(out))
+    else:
+        out = np.empty(t.size, np.int64)
+        _build.host_lib().tdc_suffix_array_sais(_ptr(t), t.size, _ptr(out))
+    return out
+
+
+def bwt_decode(bwt_bytes: bytes) -> bytes:
+    """Inverse BWT of a 0-sentineled text's transform by the LF walk;
+    returns the text without its sentinel."""
+    inp = np.frombuffer(bwt_bytes, np.uint8)
+    if inp.size <= 1:
+        return b""
+    out = np.empty(inp.size - 1, np.uint8)
+    _build.host_lib().tdc_bwt_decode(_ptr(inp), _ptr(out), inp.size)
     return out.tobytes()

@@ -1,0 +1,178 @@
+"""Algorithm registry: name -> class, algorithm-string evaluation.
+
+Python re-design of the reference's ``Registry.hpp`` + ``eval::cl_eval``:
+an algorithm string is parsed (``algostr.py``) and unified against the
+``Meta`` declarations of the registered classes — positional args bind in
+declaration order, keyword args by name, missing options fall back to
+declared defaults (which may themselves be algorithm strings). The result
+is a resolved ``Env`` tree ready for instantiation.
+
+A copy of ``tudocomp_tpu/registry.py`` for the port, with two changes:
+evaluation takes the torch device (``torch_device``, ``"cuda"`` by
+default) and hands it to every ``Env`` of the tree, and the matrix
+enumeration (``all_configurations``) is left out until the port has the
+compressor and coder families it enumerates.
+"""
+
+from __future__ import annotations
+
+from typing import Dict, List, Type
+
+from tudocomp_tpu_torch.algostr import Node, parse
+from tudocomp_tpu_torch.meta import (
+    Algorithm, Env, InputRestrictions, OptionValue,
+)
+
+
+class Registry:
+    def __init__(self):
+        self._by_type: Dict[str, Dict[str, Type[Algorithm]]] = {}
+
+    # -- registration -------------------------------------------------------
+
+    def register(self, cls: Type[Algorithm]) -> Type[Algorithm]:
+        m = cls.meta()
+        bucket = self._by_type.setdefault(m.type, {})
+        if m.name in bucket and bucket[m.name] is not cls:
+            raise ValueError(f"{m.type}:{m.name} already registered")
+        bucket[m.name] = cls
+        return cls
+
+    def lookup(self, type: str, name: str) -> Type[Algorithm]:
+        try:
+            return self._by_type[type][name]
+        except KeyError:
+            known = ", ".join(sorted(self._by_type.get(type, {})))
+            raise KeyError(
+                f"no {type} named {name!r} (known: {known})"
+            ) from None
+
+    def names(self, type: str) -> List[str]:
+        return sorted(self._by_type.get(type, {}))
+
+    # -- evaluation ----------------------------------------------------------
+
+    def evaluate(self, node_or_str, type: str = "compressor",
+                 torch_device="cuda") -> Env:
+        """Evaluate an algorithm string / AST against declarations -> Env
+        whose algorithms run on ``torch_device``."""
+        node = parse(node_or_str) if isinstance(node_or_str, str) else node_or_str
+        return self._eval_node(node, type, torch_device)
+
+    def _eval_node(self, node: Node, type: str, torch_device) -> Env:
+        cls = self.lookup(type, node.name)
+        meta = cls.meta()
+        bound: Dict[str, object] = {}
+        decls = meta.options
+        pos_i = 0
+        for key, val in node.args:
+            if key is None:
+                if pos_i >= len(decls):
+                    raise ValueError(
+                        f"too many positional args for {node.name}"
+                    )
+                decl = decls[pos_i]
+                pos_i += 1
+            else:
+                decl = meta.find(key)
+                if decl is None:
+                    raise ValueError(
+                        f"{node.name} has no option {key!r}"
+                    )
+            if decl.name in bound:
+                raise ValueError(
+                    f"option {decl.name!r} bound twice for {node.name}"
+                )
+            bound[decl.name] = val
+        options: Dict[str, OptionValue] = {}
+        for decl in decls:
+            if decl.name in bound:
+                val = bound[decl.name]
+            elif decl.default is not None:
+                val = decl.default
+            elif decl.kind == "dynamic":
+                raise ValueError(
+                    f"{node.name}: option {decl.name!r} has no value"
+                )
+            else:
+                raise ValueError(
+                    f"{node.name}: sub-algorithm {decl.name!r} has no value"
+                )
+            if decl.kind == "submeta":
+                if isinstance(val, str):
+                    val = parse(val)
+                elif not isinstance(val, Node):
+                    raise ValueError(
+                        f"{node.name}: option {decl.name!r} needs an "
+                        f"algorithm of type {decl.accepted_type!r}"
+                    )
+                # the reference's static registry simply does not contain
+                # combinations outside the declared sub-lists (e.g. the
+                # consuming arithmetic coder inside lcpcomp,
+                # registry_config.py:138-142); reject them here instead of
+                # failing later with a misaligned stream
+                if decl.accepts is not None and val.name not in decl.accepts:
+                    raise ValueError(
+                        f"{node.name}: {decl.accepted_type} "
+                        f"{val.name!r} is not accepted for option "
+                        f"{decl.name!r} (accepted: "
+                        f"{', '.join(decl.accepts)})"
+                    )
+                sub_env = self._eval_node(val, decl.accepted_type,
+                                          torch_device)
+                options[decl.name] = OptionValue(
+                    algo_cls=sub_env.cls, sub_env=sub_env
+                )
+            else:
+                if isinstance(val, Node):
+                    if val.args:
+                        raise ValueError(
+                            f"{node.name}: option {decl.name!r} is not a "
+                            "sub-algorithm"
+                        )
+                    val = val.name  # bare identifier used as string value
+                options[decl.name] = OptionValue(value=val)
+        return Env(cls, options, registry=self, torch_device=torch_device)
+
+    def instantiate(self, algostring: str, type: str = "compressor",
+                    torch_device="cuda"):
+        env = self.evaluate(algostring, type, torch_device)
+        return env.cls(env)
+
+    def restrictions_of(self, env: Env) -> InputRestrictions:
+        """Combined input restrictions of an Env tree (| over sub-algos).
+
+        Algorithms that apply their sub-algorithms' restrictions themselves
+        (the chain compressor) set ``manages_sub_restrictions`` and stop the
+        upward merge.
+        """
+        r = env.cls.meta().restrictions
+        if getattr(env.cls, "manages_sub_restrictions", False):
+            return r
+        for ov in env._options.values():
+            if ov.is_algorithm:
+                r = r | self.restrictions_of(ov.sub_env)
+        return r
+
+    def doc_listing(self) -> str:
+        """Human-readable listing of all registered algorithms (CLI --list)."""
+        lines = []
+        for type in sorted(self._by_type):
+            lines.append(f"[{type}]")
+            for name in self.names(type):
+                meta = self.lookup(type, name).meta()
+                opts = []
+                for o in meta.options:
+                    if o.kind == "submeta":
+                        opts.append(f"{o.name}: {o.accepted_type}")
+                    else:
+                        opts.append(o.name)
+                sig = f"({', '.join(opts)})" if opts else ""
+                doc = f" — {meta.doc}" if meta.doc else ""
+                lines.append(f"  {name}{sig}{doc}")
+        return "\n".join(lines)
+
+
+# The global registry, populated by tudocomp_tpu_torch.compressors.
+REGISTRY = Registry()
+
