@@ -55,9 +55,22 @@ It needs one CUDA device and exits non-zero without one. Phases:
    the inverse BWT restoring the text; each op's time (CUDA events), the
    doubling rounds, the peak device memory, the host SA-IS time; then
    ``-a "bwt(device=true):tbc2"`` through the CLI round-trips those
-   64 MiB and writes the payload of ``-a "bwt:tbc2"`` (the host path).
+   64 MiB and writes the payload of ``-a "bwt:tbc2"`` (the host path);
+11. the device LZ77 (``ops/lzss.py``) behind ``lzss_lcp``, on
+   ``bench.make_corpus`` sentineled as ``lzss_lcp`` gets it: at 1 MiB
+   both matchers' per-position ``(cand, length)`` on the card equal the
+   CPU run; at 15 MiB (under 2^24 bytes once escaped) the exact
+   matcher's time (CUDA events), peak device memory (under 24 GiB) and
+   doubling rounds, the q-gram matcher's time, and the five largest
+   device operations of one ``torch.profiler`` trace of the exact
+   matcher; then ``-a "lzss_lcp(coder=huff,comp=C)"`` for C = device,
+   device_fast and psv through the CLI, each container decoded with
+   ``dec=host`` and with ``dec=device`` back to the input, every factor
+   of the device parses a true back-reference (``src < pos``, equal
+   bytes, length at least the threshold), with each call's wall time,
+   the factor counts and the container sizes.
 
-Every time of phases 8-10 is printed with the card's name and power
+Every time of phases 8-11 is printed with the card's name and power
 limit.
 
 Each kernel's line carries its bound: the bytes it must move (inputs
@@ -854,6 +867,136 @@ def suffix_phase(dev, card: str) -> None:
           f"writes the payload of bwt:tbc2")
 
 
+def _trace_top(fn, top: int) -> list:
+    """(device ms, count, name) of the ``top`` device operations of one
+    ``torch.profiler`` trace of ``fn()``, largest first."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    rows: dict = {}
+    for e in prof.events():
+        if e.device_type == DeviceType.CUDA:
+            row = rows.setdefault(e.name, [0.0, 0])
+            row[0] += (e.time_range.end - e.time_range.start) / 1e3
+            row[1] += 1
+    return sorted(((ms, k, name) for name, (ms, k) in rows.items()),
+                  reverse=True)[:top]
+
+
+def _check_back_references(td, fpos, fsrc, flen, threshold: int) -> None:
+    """Every factor copies earlier bytes: ``src < pos``, ``len >=
+    threshold`` and ``text[src:src+len] == text[pos:pos+len]``, checked
+    on the card over all factors at once."""
+    import torch
+
+    dev = td.device
+    pos, src, ln = (torch.from_numpy(a.astype("int64")).to(dev)
+                    for a in (fpos, fsrc, flen))
+    if not bool((src < pos).all()) or not bool((ln >= threshold).all()):
+        raise AssertionError("a factor is no back-reference")
+    ramp = torch.arange(int(ln.sum()), device=dev) - torch.repeat_interleave(
+        torch.cumsum(ln, 0) - ln, ln)
+    if not torch.equal(td[torch.repeat_interleave(pos, ln) + ramp],
+                       td[torch.repeat_interleave(src, ln) + ramp]):
+        raise AssertionError("a factor's bytes differ from its source's")
+
+
+def lz77_phase(dev, card: str) -> None:
+    """Phase 11: the device LZ77 of ``lzss_lcp`` at 1 MiB against the
+    CPU and at 15 MiB alone and through the CLI."""
+    import os
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    from bench import make_corpus
+    from tudocomp_tpu_torch.compressors.lzss import parse_factor_arrays
+    from tudocomp_tpu_torch.io.bitio import BitReader
+    from tudocomp_tpu_torch.io.restrictions import escape
+    from tudocomp_tpu_torch.meta import InputRestrictions
+    from tudocomp_tpu_torch.ops import lzss
+    from tudocomp_tpu_torch.registry import REGISTRY
+
+    # as lzss_lcp gets it: 0 bytes escaped, one 0 sentinel appended
+    sentinel = InputRestrictions((), True)
+    small = np.frombuffer(escape(make_corpus(MIB).tobytes(), sentinel),
+                          np.uint8)
+    t_cpu = torch.from_numpy(small.copy())
+    for name, fn, exact in (("exact", lzss._match_exact_device, True),
+                            ("q-gram", lzss._match_device, False)):
+        max_len = lzss.match_max_len(small.size, exact)
+        got = fn(t_cpu.to(dev), max_len=max_len)
+        want = fn(t_cpu, max_len=max_len)
+        if not all(torch.equal(g.cpu(), w) for g, w in zip(got, want)):
+            raise AssertionError(f"{name} matcher: card differs from CPU")
+    print(f"  {small.size} bytes: both matchers' (cand, length) on the "
+          f"card equal the CPU's")
+
+    raw = make_corpus(15 * MIB).tobytes()
+    text = np.frombuffer(escape(raw, sentinel), np.uint8)
+    if text.size > 1 << 24:
+        raise AssertionError(f"{text.size} bytes exceed 2^24")
+    td = torch.from_numpy(text.copy()).to(dev)
+    info = {}
+    exact_len = lzss.match_max_len(text.size, True)
+    _, ms_exact, mem_exact = timed(
+        lambda: lzss._match_exact_device(td, max_len=exact_len, info=info))
+    _, ms_fast, mem_fast = timed(lambda: lzss._match_device(
+        td, max_len=lzss.match_max_len(text.size, False)))
+    print(f"  {text.size} bytes ({card}): exact matcher {ms_exact:.3f} ms, "
+          f"peak device memory {mem_exact / MIB:.1f} MiB above its start, "
+          f"{info['rounds']} doubling rounds; q-gram matcher "
+          f"{ms_fast:.3f} ms, {mem_fast / MIB:.1f} MiB")
+    if mem_exact >= 24 << 30:
+        raise AssertionError("the exact matcher needs 24 GiB or more")
+    top = _trace_top(lambda: lzss._match_exact_device(td, max_len=exact_len),
+                     5)
+    print("  exact matcher, largest device operations of one trace:")
+    for ms, count, name in top:
+        print(f"    {ms:10.3f} ms  {count:5d}x  {name[:100]}")
+    if not top:
+        print("    (the trace holds no device events)")
+
+    with tempfile.TemporaryDirectory() as tmp:
+        src = os.path.join(tmp, "in.bin")
+        with open(src, "wb") as f:
+            f.write(raw)
+        for comp in ("device", "device_fast", "psv"):
+            algo = f"lzss_lcp(coder=huff,comp={comp})"
+            out = os.path.join(tmp, f"{comp}.tdc")
+            wall = _cli([src, "-a", algo, "-f", "-o", out])
+            with open(out, "rb") as f:
+                header, payload = f.read().split(b"%", 1)
+            on_dev = os.path.join(tmp, f"{comp}.dev.tdc")
+            with open(on_dev, "wb") as f:
+                f.write(header.replace(b"dec=host", b"dec=device") + b"%"
+                        + payload)
+            walls = []
+            for path in (out, on_dev):
+                dec = path + ".dec"
+                walls.append(_cli([path, "-d", "-f", "-o", dec]))
+                _same_file(dec, raw, f"-d of {os.path.basename(path)}")
+                os.remove(dec)
+            env = REGISTRY.evaluate(header.decode(), torch_device=dev)
+            total, _, fpos, fsrc, flen = parse_factor_arrays(
+                env.cls(env).coder_decoder(BitReader(payload)))
+            if total != text.size:
+                raise AssertionError(f"{comp}: {total} bytes parsed")
+            _check_back_references(td, fpos, fsrc, flen, 3)
+            print(f"  -a {algo}: {wall:.3f} s, {len(payload) + 1 + len(header)}"
+                  f" bytes, {fpos.size} factors; -d dec=host {walls[0]:.3f} s,"
+                  f" dec=device {walls[1]:.3f} s ({card})")
+    print(f"  {len(raw) // MIB} MiB: every container restores the input "
+          f"under dec=host and dec=device; every factor is a "
+          f"back-reference")
+
+
 def require_launched(counts: dict, names) -> dict:
     """The path's launch counts; raises if one of its kernels never ran."""
     got = {k: counts[k] for k in names}
@@ -918,6 +1061,8 @@ def main() -> int:
     del container
     print("== phase 10: device suffix array and BWT at 64 MiB")
     suffix_phase(dev, card)
+    print("== phase 11: device LZ77 (lzss_lcp) at 1 MiB and 15 MiB")
+    lz77_phase(dev, card)
     sources = dict(SOURCES)
     sources.update({c["name"]: (c["source"], c["replaces"]) for c in probes})
     loaded = [m for m in ("jax", "tudocomp_tpu") if m in sys.modules]

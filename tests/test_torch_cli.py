@@ -228,9 +228,11 @@ def test_generator_input_matches_jax(tmp_path):
 def test_list_shows_the_port_registry(capsys):
     assert cli.main(["-l"]) == 0
     out = capsys.readouterr().out
-    for name in ("tbc2", "bwt", "chain", "blocks", "fib", "thue_morse"):
+    for name in ("tbc2", "bwt", "chain", "blocks", "lzss_lcp", "bit",
+                 "huff", "fib", "thue_morse"):
         assert f"  {name}" in out
-    assert "lzss" not in out
+    # the sliding-window lzss is not ported yet
+    assert "  lzss(" not in out
 
 
 def test_stats_json_has_the_jax_keys(tmp_path, capsys):

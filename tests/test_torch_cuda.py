@@ -789,3 +789,32 @@ def test_suffix_ops_on_card_match_cpu(cuda, n):
             assert sorted(got[2]) == sorted(want[2])
             for q in want[2]:
                 assert torch.equal(got[2][q].cpu(), want[2][q])
+
+
+@pytest.mark.parametrize("exact", [True, False], ids=["exact", "fast"])
+@pytest.mark.parametrize("n", [5, 513, 6000, 70000])
+def test_lz77_matchers_on_card_match_cpu(cuda, n, exact):
+    from tudocomp_tpu_torch.ops import lzss
+
+    text = np.frombuffer(_front_text(n, seed=n)[: n - 1] + b"\0", np.uint8)
+    t_cpu = torch.from_numpy(text.copy())
+    fn = lzss._match_exact_device if exact else lzss._match_device
+    max_len = lzss.match_max_len(n, exact)
+    got = fn(t_cpu.to(cuda), max_len=max_len)
+    want = fn(t_cpu, max_len=max_len)
+    assert torch.equal(got[0].cpu(), want[0])
+    assert torch.equal(got[1].cpu(), want[1])
+
+
+@pytest.mark.parametrize("algo", [
+    "lzss_lcp(coder=huff,comp=device,dec=device)",
+    "lzss_lcp(coder=bit,comp=device_fast,dec=device)",
+    "lzss_lcp(coder=gamma,comp=device,dec=device)",
+])
+def test_lzss_lcp_cli_on_card_matches_cpu(cuda, algo):
+    from tudocomp_tpu_torch import cli
+
+    data = _front_text(100_000, seed=5)
+    out = cli.compress(algo, data)
+    assert out == cli.compress(algo, data, device="cpu")
+    assert cli.decompress(out) == data

@@ -3,8 +3,9 @@
 Two shared libraries with a plain C interface, loaded with ``ctypes``:
 
 - the CUDA kernels (``csrc/*.cu``), compiled by ``nvcc`` for ``sm_90a``;
-- the host TBC2 parser and decoder, suffix array and BWT decode
-  (``csrc/host/*.cpp``), compiled by the host C++ compiler.
+- the host TBC2 parser and decoder, suffix array, BWT decode and LZ77
+  (factorizer, PLCP, factor-stream decode; ``csrc/host/*.cpp``),
+  compiled by the host C++ compiler.
 
 Each is built at first use, from the package's own sources, into
 ``csrc/build/`` (git-ignored), and is keyed by a hash of its sources and
@@ -78,8 +79,8 @@ _SIGNATURES = {
     "tdc_probe_place": [_P, _P, _P, _I, _I, _I, _P],
 }
 
-#: host entry points (``csrc/host/tbc2.cpp``, ``csrc/host/suffix.cpp``):
-#: name -> argtypes; each returns int64
+#: host entry points (``csrc/host/tbc2.cpp``, ``csrc/host/suffix.cpp``,
+#: ``csrc/host/lzss.cpp``): name -> argtypes; each returns int64
 _HOST_SIGNATURES = {
     # payload, payload_len, count, lut_sym, lut_len, k, out
     "tdc_huffman_decode": [_P, _L, _L, _P, _P, _I, _P],
@@ -94,6 +95,20 @@ _HOST_SIGNATURES = {
     "tdc_suffix_array_sais": [_P, _L, _P],
     # bwt, out, n
     "tdc_bwt_decode": [_P, _P, _L],
+    # sa, isa, lcp, n, threshold, out_pos, out_src, out_len, cap
+    # (i64 / i32 arrays)
+    "tdc_lzss_lcp_factorize": [_P, _P, _P, _L, _L, _P, _P, _P, _L],
+    "tdc_lzss_lcp_factorize32": [_P, _P, _P, _L, _L, _P, _P, _P, _L],
+    # text, phi, n, plcp (i64 / i32)
+    "tdc_plcp": [_P, _P, _L, _P],
+    "tdc_plcp32": [_P, _P, _L, _P],
+    # payload, nbits, start_bit, n, flen_min, w_src, w_len, w_dist,
+    # lut_sym, lut_len, k, mode, code_kind, out, out_cap, fpos, fsrc,
+    # flen, fcap, nfac_out
+    "tdc_lzss_decode": [_P, _L, _L, _L, _L, _I, _I, _I, _P, _P, _I, _I,
+                        _I, _P, _L, _P, _P, _P, _L, _P],
+    # payload, nbits, pos, kind, out, cap
+    "tdc_vlc_literals": [_P, _L, _L, _I, _P, _L],
 }
 
 _lock = threading.Lock()

@@ -1,1 +1,40 @@
-"""Entropy coders of the port: the canonical Huffman table."""
+"""Coders of the port: bit-level integer encode/decode dispatched on
+Range types.
+
+Copy of ``tudocomp_tpu/coders/__init__.py`` for the non-consuming coders
+(the universal ones and ``huff``). Each coder class has nested
+``Encoder``/``Decoder`` classes (reference: ``Coder.hpp`` +
+``coders/``). The consuming coders (``arithmetic``, ``sle``), which
+buffer literals before emitting, are not ported yet.
+"""
+
+from tudocomp_tpu_torch.coders.huffman import HuffmanCoder
+from tudocomp_tpu_torch.coders.simple import (
+    ASCIICoder,
+    BitCoder,
+    EliasDeltaCoder,
+    EliasGammaCoder,
+    TernaryCoder,
+)
+
+#: the coders usable for any value stream, interleaved freely, and the
+#: entropy coder that pre-scans literals but emits inline
+NON_CONSUMING_CODERS = [ASCIICoder, BitCoder, EliasGammaCoder,
+                        EliasDeltaCoder, TernaryCoder, HuffmanCoder]
+
+#: CLI-enumeration name sets (reference ``etc/registry_config.py:12-37``)
+UNIVERSAL_CODER_NAMES = ("ascii", "bit", "gamma", "delta", "ternary")
+NON_CONSUMING_CODER_NAMES = UNIVERSAL_CODER_NAMES + ("huff",)
+
+
+def native_code_kind(decoder):
+    """Map a decoder instance to the host library's int-code kind
+    (``BitRd.read_code``): 0 bit, 1 gamma, 2 delta, 3 ternary,
+    4 ascii; None for coders without a pure-VLC field format."""
+    for cls, kind in (
+        (BitCoder, 0), (EliasGammaCoder, 1), (EliasDeltaCoder, 2),
+        (TernaryCoder, 3), (ASCIICoder, 4),
+    ):
+        if isinstance(decoder, cls.Decoder):
+            return kind
+    return None

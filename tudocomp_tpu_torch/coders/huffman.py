@@ -1,7 +1,7 @@
-"""Canonical Huffman table: construction, serialisation and host decode.
+"""Canonical Huffman table (construction, serialisation, host decode)
+and the ``huff`` coder.
 
-Copy of the table half of ``tudocomp_tpu/coders/huffman.py`` (the coder
-class stays there). Wire format of the table, as in the reference
+Copy of ``tudocomp_tpu/coders/huffman.py``. Wire format of the table, as in the reference
 ``coders/HuffmanCoder.hpp``: compressed_int(longest), longest x
 compressed_int(numl[l]) (count of codewords of length l+1),
 compressed_int(alphabet_size), then the effective alphabet symbols
@@ -17,6 +17,9 @@ import heapq
 import numpy as np
 
 from tudocomp_tpu_torch import native
+from tudocomp_tpu_torch.coders import base
+from tudocomp_tpu_torch.meta import Algorithm, Meta
+from tudocomp_tpu_torch.ranges import LiteralRange, Range
 
 
 def gen_codelengths_limited(counts: np.ndarray, max_len: int = 31):
@@ -173,3 +176,86 @@ class HuffmanTable:
             np.arange(1, longest + 1, dtype=np.uint8), numl
         )
         return cls(symbols, lengths)
+
+
+class HuffmanCoder(Algorithm):
+    @classmethod
+    def meta(cls):
+        return Meta("coder", "huff", "Canonical Huffman coder")
+
+    class Encoder(base.Encoder):
+        def __init__(self, env, out, literals):
+            super().__init__(env, out, literals)
+            chars = literals.chars
+            counts = np.bincount(chars, minlength=256)
+            sigma = int((counts > 0).sum())
+            if sigma <= 1:
+                self.table = None
+                out.write_bit(0)
+            else:
+                self.table = HuffmanTable.from_counts(counts)
+                out.write_bit(1)
+                self.table.write(out)
+
+        def encode(self, v, r: Range) -> None:
+            if isinstance(r, LiteralRange):
+                if self.table is None:
+                    self.out.write_int(int(v) & 0xFF, 8)
+                else:
+                    s = int(v) & 0xFF
+                    self.out.write_int(
+                        int(self.table.sym_code[s]),
+                        int(self.table.sym_len[s]),
+                    )
+            else:
+                super().encode(v, r)
+
+        def encode_array(self, values, r: Range) -> None:
+            if isinstance(r, LiteralRange):
+                values = np.asarray(values, np.uint8)
+                if self.table is None:
+                    self.out.write_int_array(values.astype(np.uint64), 8)
+                else:
+                    self.out.write_tokens(
+                        self.table.sym_code[values],
+                        self.table.sym_len[values].astype(np.int32),
+                    )
+            else:
+                super().encode_array(values, r)
+
+    class Decoder(base.Decoder):
+        def __init__(self, env, inp):
+            super().__init__(env, inp)
+            if inp.read_bit():
+                self.table = HuffmanTable.read(inp)
+                # start index of each length among sorted symbols
+                self.start_of_len = np.concatenate(
+                    [[0], np.cumsum(self.table.numl)[:-1]]
+                )
+            else:
+                self.table = None
+
+        def decode(self, r: Range) -> int:
+            if not isinstance(r, LiteralRange):
+                return super().decode(r)
+            if self.table is None:
+                return self.inp.read_int(8)
+            value = 0
+            length = 0
+            fc = self.table.firstcode
+            while True:
+                value = (value << 1) | self.inp.read_bit()
+                length += 1
+                if value >= fc[length - 1]:
+                    break
+            idx = self.start_of_len[length - 1] + (value - fc[length - 1])
+            return int(self.table.symbols[idx])
+
+        def decode_array(self, r: Range, count: int) -> np.ndarray:
+            if not isinstance(r, LiteralRange):
+                return super().decode_array(r, count)
+            if self.table is None:
+                return self.inp.read_int_array(8, count)
+            return np.array(
+                [self.decode(r) for _ in range(count)], np.uint64
+            )

@@ -2,7 +2,8 @@
 token packer.
 
 Copy of the parts of ``tudocomp_tpu/io/bitio.py`` that the port calls
-(the TBC2 header and the Huffman table serialisation); semantics follow
+(the TBC2 header, the Huffman table serialisation and the coders'
+integer codes: unary, ternary, Elias gamma and delta); semantics follow
 that package's ``io/spec.md``. The writer is token-buffered: every write
 appends ``(value, len)`` tokens (len <= 32) and the byte stream is
 produced in one vectorised pass at :meth:`BitWriter.getvalue`.
@@ -11,6 +12,8 @@ produced in one vectorised pass at :meth:`BitWriter.getvalue`.
 from __future__ import annotations
 
 import numpy as np
+
+from tudocomp_tpu_torch.utils.bits import bits_for, bits_for_arr
 
 _U64_1 = np.uint64(1)
 
@@ -130,6 +133,38 @@ class BitWriter:
         self._sv.append(v & ((1 << bits) - 1))
         self._sl.append(bits)
 
+    def write_unary(self, v: int) -> None:
+        v = int(v)
+        while v >= 32:
+            self._sv.append(0)
+            self._sl.append(32)
+            v -= 32
+        self._sv.append(1)
+        self._sl.append(v + 1)
+
+    def write_ternary(self, v: int) -> None:
+        v = int(v)
+        if v:
+            v -= 1
+            while True:
+                self._sv.append(v % 3)
+                self._sl.append(2)
+                v //= 3
+                if not v:
+                    break
+        self._sv.append(3)
+        self._sl.append(2)
+
+    def write_elias_gamma(self, v: int) -> None:
+        nbits = bits_for(v)
+        self.write_unary(nbits)
+        self.write_int(v, nbits)
+
+    def write_elias_delta(self, v: int) -> None:
+        nbits = bits_for(v)
+        self.write_elias_gamma(nbits)
+        self.write_int(v, nbits)
+
     def write_compressed_int(self, v: int, b: int = 7) -> None:
         v = int(v)
         while True:
@@ -151,6 +186,68 @@ class BitWriter:
         """Fixed-width batch write: each value in ``bits`` bits."""
         values = np.asarray(values, dtype=np.uint64)
         self.write_tokens(values, np.full(values.shape, bits, np.int32))
+
+    def write_gamma_array(self, values) -> None:
+        values = np.asarray(values, dtype=np.uint64)
+        nb = bits_for_arr(values).astype(np.int64)
+        if (nb < 32).all():
+            # interleave unary(nb) and int(v, nb) tokens
+            tv = np.empty(values.size * 2, np.uint64)
+            tl = np.empty(values.size * 2, np.int64)
+            tv[0::2] = 1
+            tl[0::2] = nb + 1
+            tv[1::2] = values
+            tl[1::2] = nb
+            self.write_tokens(tv, tl)
+            return
+        for v in values.tolist():
+            self.write_elias_gamma(int(v))
+
+    def write_ternary_array(self, values) -> None:
+        """Vectorized ternary codes: per value the base-3 digits of
+        ``v-1`` as 2-bit tokens plus the ``0b11`` terminator (``v == 0``
+        is the bare terminator), matching :meth:`write_ternary`."""
+        values = np.asarray(values, dtype=np.uint64)
+        if values.size == 0:
+            return
+        if (values >= 3 ** 20).any():  # keep int64 power math exact
+            for v in values.tolist():
+                self.write_ternary(int(v))
+            return
+        v = values.astype(np.int64)
+        v1 = np.maximum(v - 1, 0)
+        d = np.ones(values.size, np.int64)
+        p = 3
+        while (v1 >= p).any():
+            d += v1 >= p
+            p *= 3
+        d = np.where(v == 0, 0, d)
+        tok_counts = d + 1
+        total = int(tok_counts.sum())
+        off = np.cumsum(tok_counts) - tok_counts
+        owner = np.repeat(np.arange(values.size), tok_counts)
+        j = np.arange(total) - off[owner]
+        vo = v1[owner]
+        tok = np.where(
+            j < d[owner], (vo // np.power(3, j, dtype=np.int64)) % 3, 3
+        )
+        self.write_tokens(
+            tok.astype(np.uint64), np.full(total, 2, np.int64)
+        )
+
+    def write_delta_array(self, values) -> None:
+        values = np.asarray(values, dtype=np.uint64)
+        nb = bits_for_arr(values).astype(np.int64)
+        nnb = bits_for_arr(nb).astype(np.int64)  # bits_for(nb) <= 7 always
+        tv = np.empty(values.size * 3, np.uint64)
+        tl = np.empty(values.size * 3, np.int64)
+        tv[0::3] = 1
+        tl[0::3] = nnb + 1
+        tv[1::3] = nb.astype(np.uint64)
+        tl[1::3] = nnb
+        tv[2::3] = values
+        tl[2::3] = nb
+        self.write_tokens(tv, tl)
 
     def _flush_scalars(self):
         if self._sv:
@@ -191,7 +288,11 @@ class BitReader:
             0, np.uint8
         )
         self._wl = None  # packed words as Python ints (lazy, scalar reads)
+        self._ones = None  # positions of the one bits (lazy, unary reads)
         self.pos = 0
+
+    def eof(self) -> bool:
+        return self.pos >= self.total
 
     def read_bit(self) -> int:
         if self.pos >= self.total:
@@ -219,6 +320,39 @@ class BitReader:
         o += amount
         self.pos = o if o < self.total else self.total
         return w >> (64 - amount) if amount else 0
+
+    def read_unary(self) -> int:
+        if self._ones is None:
+            self._ones = np.flatnonzero(self._bits)
+        i = np.searchsorted(self._ones, self.pos)
+        if i >= self._ones.size:
+            v = self.total - self.pos
+            self.pos = self.total
+            return int(v)
+        one_at = int(self._ones[i])
+        v = one_at - self.pos
+        self.pos = one_at + 1
+        return v
+
+    def read_ternary(self) -> int:
+        mod = self.read_int(2)
+        v = 0
+        if mod < 3:
+            b = 1
+            while True:
+                v += mod * b
+                b *= 3
+                mod = self.read_int(2)
+                if mod == 3:
+                    break
+            v += 1
+        return v
+
+    def read_elias_gamma(self) -> int:
+        return self.read_int(self.read_unary())
+
+    def read_elias_delta(self) -> int:
+        return self.read_int(self.read_elias_gamma())
 
     def read_compressed_int(self, b: int = 7) -> int:
         value = 0
