@@ -68,9 +68,25 @@ It needs one CUDA device and exits non-zero without one. Phases:
    ``dec=host`` and with ``dec=device`` back to the input, every factor
    of the device parses a true back-reference (``src < pos``, equal
    bytes, length at least the threshold), with each call's wall time,
-   the factor counts and the container sizes.
+   the factor counts and the container sizes;
+12. the sharded pipeline (``tudocomp_tpu_torch/parallel/``) on the
+   256 MiB of phase 3: (a) one NCCL rank on the card in this process
+   (a ``FileStore`` rendezvous): ``compress_sharded`` equals phase 3's
+   container and ``decompress_sharded`` restores the input, with the
+   launches of that run (K1's select entry 16, K3's rows entry 1, K2's
+   select entry 16, K4 1), both timed beside ``BlockCodec.compress`` and
+   ``decompress_device`` of the same bytes; ``factorize_blocks_sharded``
+   on 8 blocks of 256 KiB equals ``factorize_device`` per block on the
+   card, and one block on the CPU; (b) two spawned ranks on the same
+   card over ``gloo`` (NCCL refuses two ranks on one card): the same
+   container and round trip, each rank's ``_frames`` time, then
+   ``compress_sharded_resumable`` of 64 MiB stopped by
+   ``TDC_CRASH_AFTER_BATCH=1`` (rank 0 exits 17) and resumed, equal to
+   ``BlockCodec.compress`` of those bytes; (c)
+   ``dryrun_multichip(2, device="cuda", backend="gloo")``. A rank's
+   non-zero exit or a spawn past its limit fails the phase.
 
-Every time of phases 8-11 is printed with the card's name and power
+Every time of phases 8-12 is printed with the card's name and power
 limit.
 
 Each kernel's line carries its bound: the bytes it must move (inputs
@@ -997,6 +1013,207 @@ def lz77_phase(dev, card: str) -> None:
           f"back-reference")
 
 
+#: phase 12: the launches of one 256 MiB round trip at world size 1
+SHARDED_LAUNCHES = {"rle_select": 16, "histogram_rows": 1,
+                    "huff_select": 16, "decode": 1}
+#: phase 12: wall-clock limit of one spawn of ranks, in seconds
+RANKS_LIMIT = 300.0
+
+
+def _wall(fn):
+    """``fn()``'s result and its wall time in seconds (synchronised)."""
+    import torch
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, time.perf_counter() - t0
+
+
+def _sharded_round_trip(mesh, n_bytes: int, expected: str) -> dict:
+    """Phase 12 (b), one rank: ``compress_sharded`` of
+    ``make_corpus(n_bytes)`` equal to the container in the file
+    ``expected``, and ``decompress_sharded`` of it restoring the input
+    (rank 0 checks). Returns this rank's wall times and stage times."""
+    from bench import make_corpus
+    from tudocomp_tpu_torch import BlockCodec
+    from tudocomp_tpu_torch.ops import launch_counts, reset_launches
+    from tudocomp_tpu_torch.parallel import compress_sharded
+    from tudocomp_tpu_torch.parallel.pipeline import decompress_sharded
+
+    data = make_corpus(n_bytes).tobytes()
+    codec = BlockCodec(device=mesh.device)
+    reset_launches()
+    got, t_comp = _wall(lambda: compress_sharded(codec, mesh, data))
+    enc = dict(codec.timings)
+    with open(expected, "rb") as f:
+        container = f.read()
+    if mesh.rank == 0 and got != container:
+        raise AssertionError("compress_sharded at world 2 differs from "
+                             "phase 3's container")
+    back, t_dec = _wall(lambda: decompress_sharded(codec, mesh, container))
+    if mesh.rank == 0 and back != data:
+        raise AssertionError("decompress_sharded at world 2 differs")
+    counts = launch_counts()
+    return {"compress_s": t_comp, **enc, "decompress_s": t_dec,
+            **{f"dec_{k}": v for k, v in codec.timings.items()},
+            "launches": {k: counts[k] for k in SHARDED_LAUNCHES}}
+
+
+def _journaled(mesh, src: str, dst: str, resume: bool) -> float:
+    """Phase 12 (b), one rank: ``compress_sharded_resumable`` of ``src``
+    into ``dst``; its wall time."""
+    from tudocomp_tpu_torch import BlockCodec
+    from tudocomp_tpu_torch.parallel.pipeline import (
+        compress_sharded_resumable,
+    )
+
+    return _wall(lambda: compress_sharded_resumable(
+        BlockCodec(device=mesh.device), mesh, src, dst, resume=resume))[1]
+
+
+def parallel_phase(corpus, dev, card: str, container=None) -> dict:
+    """Phase 12: the sharded pipeline at world size 1 over NCCL in this
+    process, at world size 2 over gloo in two spawned ranks on the same
+    card, and ``dryrun_multichip(2)``. ``container``: phase 3's, which
+    ``BlockCodec.compress`` must give again. Returns the launch counts
+    of the world-1 round trip."""
+    import os
+    import tempfile
+
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+
+    from tudocomp_tpu_torch import BlockCodec
+    from tudocomp_tpu_torch.entry import dryrun_multichip
+    from tudocomp_tpu_torch.ops import launch_counts, reset_launches
+    from tudocomp_tpu_torch.ops.lzss import factorize_device
+    from tudocomp_tpu_torch.parallel import compress_sharded, make_mesh
+    from tudocomp_tpu_torch.parallel.distributed import TIMEOUT
+    from tudocomp_tpu_torch.parallel.launch import RanksFailed, run_ranks
+    from tudocomp_tpu_torch.parallel.pipeline import (
+        decompress_sharded, factorize_blocks_sharded,
+    )
+
+    data = corpus.tobytes()
+    mib = len(data) // MIB
+    codec = BlockCodec(device=dev)
+    ref, t_ref = _wall(lambda: codec.compress(data))
+    if container is not None and ref != container:
+        raise AssertionError("BlockCodec.compress differs from phase 3's")
+    restored, t_ref_dec = _wall(lambda: codec.decompress_device(ref))
+    if restored != data:
+        raise AssertionError("decompress_device differs from the input")
+    del restored
+    print(f"  {mib} MiB ({card}): BlockCodec.compress {t_ref:.3f} s, "
+          f"decompress_device {t_ref_dec:.3f} s")
+
+    print("  (a) world size 1, nccl, this process")
+    with tempfile.TemporaryDirectory() as td:
+        dist.init_process_group(
+            "nccl", store=dist.FileStore(os.path.join(td, "store"), 1),
+            rank=0, world_size=1, timeout=TIMEOUT)
+        try:
+            mesh = make_mesh(1, device=dev)
+            # NCCL starts its communicator at the first collective: start
+            # it here, outside the timed calls
+            mesh.all_reduce(torch.zeros(1, device=dev))
+            reset_launches()
+            got, t_comp = _wall(lambda: compress_sharded(codec, mesh, data))
+            enc = dict(codec.timings)
+            back, t_dec = _wall(
+                lambda: decompress_sharded(codec, mesh, got))
+            counts = launch_counts()
+            if got != ref:
+                raise AssertionError("compress_sharded at world 1 differs "
+                                     "from phase 3's container")
+            if back != data:
+                raise AssertionError("decompress_sharded at world 1 "
+                                     "differs from the input")
+            del got, back
+            launched = {k: counts[k] for k in SHARDED_LAUNCHES}
+            if launched != SHARDED_LAUNCHES:
+                raise AssertionError(f"launches at world 1: {launched}")
+            print(f"  compress_sharded {t_comp:.3f} s (encode "
+                  f"{enc['encode']:.3f}, frames {enc['frames']:.3f}, gather "
+                  f"{enc['gather']:.3f}), decompress_sharded {t_dec:.3f} s "
+                  f"({card}); == phase 3's container, restores the input; "
+                  f"launches {json.dumps(launched)}")
+            block = 256 << 10
+            blocks = corpus.reshape(8, -1)[:, :block].copy()
+            blocks[:, -1] = 0
+            factors, t_fact = _wall(lambda: factorize_blocks_sharded(
+                mesh, blocks, threshold=3, max_len=512))
+        finally:
+            dist.destroy_process_group()
+    for i in range(len(blocks)):
+        want = factorize_device(blocks[i], 3, max_len=512, device=dev)
+        if not all(np.array_equal(a, b) for a, b in zip(factors[i], want)):
+            raise AssertionError(f"factorize_blocks_sharded block {i}")
+    want = factorize_device(blocks[0], 3, max_len=512, device="cpu")
+    if not all(np.array_equal(a, b) for a, b in zip(factors[0], want)):
+        raise AssertionError("factorize_blocks_sharded block 0 != the CPU")
+    print(f"  factorize_blocks_sharded, 8 x 256 KiB: {t_fact:.3f} s "
+          f"({card}), {sum(f[0].size for f in factors)} factors; == "
+          f"factorize_device per block on the card, block 0 on the CPU")
+
+    print("  (b) world size 2, gloo, two spawned ranks on one card")
+    with tempfile.TemporaryDirectory() as td:
+        expected = os.path.join(td, "container.bin")
+        with open(expected, "wb") as f:
+            f.write(ref)
+        (r0, r1), t_spawn = _wall(lambda: run_ranks(
+            _sharded_round_trip, 2, device=dev.type, backend="gloo",
+            args=(len(data), expected), timeout=RANKS_LIMIT))
+        for rank, r in enumerate((r0, r1)):
+            print(f"  rank {rank}: compress_sharded {r['compress_s']:.3f} s"
+                  f" (encode {r['encode']:.3f}, frames {r['frames']:.3f}, "
+                  f"gather {r['gather']:.3f}), decompress_sharded "
+                  f"{r['decompress_s']:.3f} s (parse {r['dec_parse']:.3f}, "
+                  f"decode {r['dec_decode']:.3f}, gather "
+                  f"{r['dec_gather']:.3f}) ({card}); launches "
+              f"{json.dumps(r['launches'])}")
+        both = {k: r0["launches"][k] + r1["launches"][k]
+                for k in SHARDED_LAUNCHES}
+        if both != {**SHARDED_LAUNCHES, "decode": 2}:
+            raise AssertionError(f"launches of the two ranks: {both}")
+        print(f"  == phase 3's container, restores the input; the spawn "
+              f"{t_spawn:.3f} s in all")
+        part = corpus[: 64 * MIB].tobytes()
+        src, dst = os.path.join(td, "in64.bin"), os.path.join(td, "out.tbc2")
+        with open(src, "wb") as f:
+            f.write(part)
+        print("  stopping rank 0 after batch 1: rank 1 then loses its peer "
+              "(a gloo error and its traceback are expected)", flush=True)
+        try:
+            run_ranks(_journaled, 2, device=dev.type, backend="gloo",
+                      args=(src, dst, False), timeout=RANKS_LIMIT,
+                      env={"TDC_CRASH_AFTER_BATCH": "1"})
+        except RanksFailed as e:
+            if e.exitcodes[0] != 17:
+                raise
+            crashed = e.exitcodes
+        else:
+            raise AssertionError("TDC_CRASH_AFTER_BATCH=1 did not stop it")
+        times = run_ranks(_journaled, 2, device=dev.type, backend="gloo",
+                          args=(src, dst, True), timeout=RANKS_LIMIT)
+        with open(dst, "rb") as f:
+            if f.read() != codec.compress(part):
+                raise AssertionError("the resumed container differs from "
+                                     "BlockCodec.compress")
+        print(f"  compress_sharded_resumable, 64 MiB: stopped after batch 1"
+              f" (exit codes {crashed}), resumed in {max(times):.3f} s "
+              f"({card}); == BlockCodec.compress")
+
+    print("  (c) dryrun_multichip(2, device=cuda, backend=gloo)")
+    _, t_dry = _wall(lambda: dryrun_multichip(2, device=dev.type,
+                                              backend="gloo"))
+    print(f"  passed in {t_dry:.3f} s ({card})")
+    return counts
+
+
 def require_launched(counts: dict, names) -> dict:
     """The path's launch counts; raises if one of its kernels never ran."""
     got = {k: counts[k] for k in names}
@@ -1058,11 +1275,13 @@ def main() -> int:
     cli_counts = require_launched(front_end(corpus, container, card),
                                   CODEC_KERNELS)
     print("   launch counts of -a tbc2 and -d", json.dumps(cli_counts))
-    del container
     print("== phase 10: device suffix array and BWT at 64 MiB")
     suffix_phase(dev, card)
     print("== phase 11: device LZ77 (lzss_lcp) at 1 MiB and 15 MiB")
     lz77_phase(dev, card)
+    print("== phase 12: the sharded pipeline (parallel/) at 256 MiB")
+    parallel_phase(corpus, dev, card, container)
+    del container
     sources = dict(SOURCES)
     sources.update({c["name"]: (c["source"], c["replaces"]) for c in probes})
     loaded = [m for m in ("jax", "tudocomp_tpu") if m in sys.modules]

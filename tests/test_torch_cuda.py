@@ -818,3 +818,96 @@ def test_lzss_lcp_cli_on_card_matches_cpu(cuda, algo):
     out = cli.compress(algo, data)
     assert out == cli.compress(algo, data, device="cpu")
     assert cli.decompress(out) == data
+
+
+# --- the sharded pipeline (parallel/) on the card ---------------------------
+
+
+@pytest.fixture
+def nccl_world_1(cuda, tmp_path):
+    """One NCCL rank on the card, over a FileStore, in this process."""
+    import torch.distributed as dist
+
+    from tudocomp_tpu_torch.parallel import make_mesh
+    from tudocomp_tpu_torch.parallel.distributed import TIMEOUT
+
+    dist.init_process_group(
+        "nccl", store=dist.FileStore(str(tmp_path / "store"), 1), rank=0,
+        world_size=1, timeout=TIMEOUT)
+    try:
+        yield make_mesh(1, device=cuda)
+    finally:
+        dist.destroy_process_group()
+
+
+def test_sharded_nccl_world_1_matches_cpu(nccl_world_1):
+    import torch_parallel_ranks as ranks
+
+    from tudocomp_tpu_torch.ops.lzss import factorize_device
+    from tudocomp_tpu_torch.parallel import compress_sharded
+    from tudocomp_tpu_torch.parallel.pipeline import (
+        decompress_sharded, factorize_blocks_sharded,
+    )
+
+    mesh = nccl_world_1
+    codec = BlockCodec(device=mesh.device)
+    cases = {**ranks.inputs(), "resume": ranks.resume_data()}
+    for name, data in cases.items():
+        reset_launches()
+        got = compress_sharded(codec, mesh, data)
+        assert got == BlockCodec(device="cpu").compress(data), name
+        assert decompress_sharded(codec, mesh, got) == data, name
+        counts = launch_counts()
+        assert counts["rle_select"] and counts["huff_select"], name
+        assert counts["decode"] == 1, name
+    blocks = ranks.blocks()
+    got = factorize_blocks_sharded(mesh, blocks, threshold=4)
+    for i in range(len(blocks)):
+        want = factorize_device(blocks[i], 4, max_len=383, device="cpu")
+        assert all(np.array_equal(a, b) for a, b in zip(got[i], want)), i
+
+
+def test_sharded_two_gloo_ranks_on_one_card(cuda, tmp_path, monkeypatch):
+    """Two spawned ranks on cuda:0 over gloo (NCCL refuses two ranks on
+    one card): every case of the CPU world runs equal to the card's
+    one-device codec."""
+    import torch_parallel_ranks as ranks
+
+    from tudocomp_tpu_torch.models import blockcodec as bc
+    from tudocomp_tpu_torch.ops.lzss import factorize_device
+    from tudocomp_tpu_torch.parallel.launch import run_ranks
+
+    results = run_ranks(ranks.world_run, 2, device="cuda", backend="gloo",
+                        args=(str(tmp_path), (1, 2)), timeout=300)
+    root = results[0]
+    codec = BlockCodec(device=cuda)
+    for name, data in ranks.inputs().items():
+        want = codec.compress(data)
+        assert root[name, 1] == root[name, 2] == want, name
+        assert root["dec", name] == data, name
+    assert root["journaled"] == codec.compress(ranks.resume_data())
+    blocks = ranks.blocks()
+    for i in range(len(blocks)):
+        want = factorize_device(blocks[i], 4, max_len=383, device="cpu")
+        assert all(np.array_equal(a, b)
+                   for a, b in zip(root["factors"][i], want)), i
+    monkeypatch.setattr(bc, "HIST_SEGS", ranks.HIST_CAP)
+    want = codec.compress(ranks.cap_data())
+    assert all(root["cap", lanes] == want for lanes in ranks.CAP_LANES)
+
+
+def test_sharded_crash_and_resume_on_the_card(cuda, tmp_path):
+    import torch_parallel_ranks as ranks
+
+    from tudocomp_tpu_torch.parallel.launch import RanksFailed, run_ranks
+
+    src, dst = str(tmp_path / "in.bin"), str(tmp_path / "out.tbc2")
+    (tmp_path / "in.bin").write_bytes(ranks.resume_data())
+    with pytest.raises(RanksFailed) as e:
+        run_ranks(ranks.journaled, 2, device="cuda", backend="gloo",
+                  args=(src, dst, False), timeout=300,
+                  env={"TDC_CRASH_AFTER_BATCH": "1"})
+    assert e.value.exitcodes[0] == 17
+    got = run_ranks(ranks.journaled, 2, device="cuda", backend="gloo",
+                    args=(src, dst, True), timeout=300)[0]
+    assert got == BlockCodec(device=cuda).compress(ranks.resume_data())
