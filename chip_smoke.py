@@ -84,9 +84,29 @@ It needs one CUDA device and exits non-zero without one. Phases:
    ``TDC_CRASH_AFTER_BATCH=1`` (rank 0 exits 17) and resumed, equal to
    ``BlockCodec.compress`` of those bytes; (c)
    ``dryrun_multichip(2, device="cuda", backend="gloo")``. A rank's
-   non-zero exit or a spawn past its limit fails the phase.
+   non-zero exit or a spawn past its limit fails the phase;
+13. the device lcpcomp (``ops/lcpcomp.py``) behind ``lcpcomp
+   comp=device``, on ``bench.make_corpus`` sentineled as ``lcpcomp``
+   gets it: (a) at 1 MiB, ``_lcp_by_position`` and ``factorize_device``
+   on the card equal the CPU's position by position and factor by factor
+   (with ``device_rounds``), the device operations a round and the five
+   largest of one traced ``_all_rounds``, and every ``dec`` strategy
+   (``scan``, ``compact``, ``MultimapListBuffer``, ``QueueListBuffer``)
+   restores the input from the ``comp=device`` container; (b) at 16 MiB,
+   ``_lcp_by_position`` and ``_all_rounds`` timed apart (CUDA events),
+   the rounds, the ms a round, the host syncs of each (``torch.cuda``'s
+   sync debug mode), the peak device memory and its bytes a position,
+   the factors (targets disjoint, each equal to its source: they may
+   point forward) and the five largest device operations of one trace
+   of ``_lcp_by_position``; (c) at 4 MiB, ``-a
+   "lcpcomp(coder=huff,comp=device)"``, ``coder=sle,comp=device`` and
+   ``coder=huff,comp=arrays`` through ``cli.main``, each ``-d`` back to
+   the input, with wall times, bytes, factors, the wall-time ratio
+   device/arrays, and the host flatten of each strategy's factors. (b)
+   and (c) run below phases 10 and 11's 64 and 15 MiB:
+   ``LCPCOMP_*_MIB`` says why.
 
-Every time of phases 8-12 is printed with the card's name and power
+Every time of phases 8-13 is printed with the card's name and power
 limit.
 
 Each kernel's line carries its bound: the bytes it must move (inputs
@@ -886,6 +906,12 @@ def suffix_phase(dev, card: str) -> None:
 def _trace_top(fn, top: int) -> list:
     """(device ms, count, name) of the ``top`` device operations of one
     ``torch.profiler`` trace of ``fn()``, largest first."""
+    return _trace_rows(fn)[:top]
+
+
+def _trace_rows(fn) -> list:
+    """(device ms, count, name) of every device operation of one
+    ``torch.profiler`` trace of ``fn()``, largest first."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -901,7 +927,7 @@ def _trace_top(fn, top: int) -> list:
             row[0] += (e.time_range.end - e.time_range.start) / 1e3
             row[1] += 1
     return sorted(((ms, k, name) for name, (ms, k) in rows.items()),
-                  reverse=True)[:top]
+                  reverse=True)
 
 
 def _check_back_references(td, fpos, fsrc, flen, threshold: int) -> None:
@@ -915,8 +941,16 @@ def _check_back_references(td, fpos, fsrc, flen, threshold: int) -> None:
                     for a in (fpos, fsrc, flen))
     if not bool((src < pos).all()) or not bool((ln >= threshold).all()):
         raise AssertionError("a factor is no back-reference")
-    ramp = torch.arange(int(ln.sum()), device=dev) - torch.repeat_interleave(
-        torch.cumsum(ln, 0) - ln, ln)
+    _check_copies(td, pos, src, ln)
+
+
+def _check_copies(td, pos, src, ln) -> None:
+    """``text[src:src+len] == text[pos:pos+len]`` for every factor (int64
+    tensors on the card)."""
+    import torch
+
+    ramp = torch.arange(int(ln.sum()), device=td.device) - \
+        torch.repeat_interleave(torch.cumsum(ln, 0) - ln, ln)
     if not torch.equal(td[torch.repeat_interleave(pos, ln) + ramp],
                        td[torch.repeat_interleave(src, ln) + ramp]):
         raise AssertionError("a factor's bytes differ from its source's")
@@ -1214,6 +1248,221 @@ def parallel_phase(corpus, dev, card: str, container=None) -> dict:
     return counts
 
 
+#: phase 13: the input sizes of its three parts, in MiB. The corpus's
+#: period-124 half takes one round per 4096 bytes (8,201 rounds, 185 s
+#: at 64 MiB) and the host flatten of comp=arrays grows as n^2, so (b)
+#: and (c) run below phases 10 and 11's 64 and 15 MiB to keep the phase
+#: near a minute
+LCPCOMP_CHECK_MIB, LCPCOMP_ALONE_MIB, LCPCOMP_CLI_MIB = 1, 16, 4
+LCPCOMP_DECS = ("scan", "compact", "MultimapListBuffer", "QueueListBuffer")
+
+
+def _check_lcpcomp_factors(td, pos, src, ln, threshold: int) -> None:
+    """lcpcomp's factors may point forward: the targets, by position,
+    are disjoint and inside the text, every length reaches the
+    threshold, and each target's bytes equal its source's (int64 tensors
+    on the card)."""
+    n = td.numel()
+    ok = ((ln >= threshold).all() & (src >= 0).all() & (src != pos).all()
+          & (src + ln <= n).all() & (pos + ln <= n).all()
+          & (pos[1:] >= pos[:-1] + ln[:-1]).all())
+    if not bool(ok):
+        raise AssertionError("lcpcomp factors overlap or leave the text")
+    _check_copies(td, pos, src, ln)
+
+
+def _syncs(fn):
+    """``fn()``'s result and the host syncs it made: the warnings of
+    ``torch.cuda``'s sync debug mode."""
+    import warnings
+
+    import torch
+
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            out = fn()
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+    return out, sum("synchroniz" in str(w.message) for w in caught)
+
+
+def lcpcomp_alone(dev, card: str, mib: int) -> None:
+    """Phase 13 (b): ``factorize_device`` alone on ``mib`` MiB of the
+    corpus, its two parts timed apart, with their host syncs, the peak
+    device memory, the factor checks and one trace of the LCP part (the
+    rounds' trace is (a)'s: a trace of thousands of rounds takes the
+    profiler minutes to read)."""
+    import numpy as np
+    import torch
+
+    from bench import make_corpus
+    from tudocomp_tpu_torch.io.restrictions import escape
+    from tudocomp_tpu_torch.meta import InputRestrictions
+    from tudocomp_tpu_torch.ops import lcpcomp
+
+    sentinel = InputRestrictions((), True)
+    text = np.frombuffer(
+        escape(make_corpus(mib * MIB).tobytes(), sentinel), np.uint8)
+    n = text.size
+    max_len = min(4096, n - 1)
+    td = torch.from_numpy(text.copy()).to(dev)
+    del text
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    events = [torch.cuda.Event(enable_timing=True) for _ in range(3)]
+    events[0].record()
+    (lcp0, src), syncs_lcp = _syncs(
+        lambda: lcpcomp._lcp_by_position(td, max_len=max_len))
+    events[1].record()
+    cov0 = torch.zeros(n, dtype=torch.bool, device=dev)
+    ch0 = torch.zeros(n, dtype=torch.int32, device=dev)
+    (_, chosen, rounds), syncs_rounds = _syncs(
+        lambda: lcpcomp._all_rounds(cov0, ch0, lcp0, 5, max_len=max_len))
+    events[2].record()
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated() - base
+    ms_lcp = events[0].elapsed_time(events[1])
+    ms_rounds = events[1].elapsed_time(events[2])
+    starts = torch.nonzero(chosen > 0).squeeze(1)
+    _check_lcpcomp_factors(td, starts, src[starts].long(),
+                           chosen[starts].long(), 5)
+    print(f"  {n} bytes ({card}): _lcp_by_position {ms_lcp:.3f} ms "
+          f"({syncs_lcp} host syncs), _all_rounds {ms_rounds:.3f} ms: "
+          f"{rounds} rounds, {ms_rounds / rounds:.3f} ms a round "
+          f"({syncs_rounds} host syncs); peak device memory "
+          f"{peak / MIB:.1f} MiB above the text ({peak / n:.1f} bytes a "
+          f"position); {starts.numel()} factors, targets disjoint, each "
+          f"equal to its source")
+    del starts, chosen, cov0, ch0, lcp0, src
+    top = _trace_top(lambda: lcpcomp._lcp_by_position(td, max_len=max_len),
+                     5)
+    print("  _lcp_by_position, largest device operations of one trace:")
+    for ms, count, name in top:
+        print(f"    {ms:10.3f} ms  {count:5d}x  {name[:100]}")
+
+
+def lcpcomp_phase(dev, card: str) -> None:
+    """Phase 13: the device lcpcomp (``ops/lcpcomp.py``) at 1 MiB against
+    the CPU, alone at 16 MiB, and through the CLI at 4 MiB."""
+    import os
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    from bench import make_corpus
+    from tudocomp_tpu_torch import cli, native
+    from tudocomp_tpu_torch.compressors.lzss import (
+        FactorBuffer, parse_factor_arrays,
+    )
+    from tudocomp_tpu_torch.ds.suffix import TextDS
+    from tudocomp_tpu_torch.io.bitio import BitReader
+    from tudocomp_tpu_torch.io.restrictions import escape
+    from tudocomp_tpu_torch.meta import InputRestrictions
+    from tudocomp_tpu_torch.ops import lcpcomp
+    from tudocomp_tpu_torch.registry import REGISTRY
+    from tudocomp_tpu_torch.stats import StatPhase
+
+    # as lcpcomp gets it: 0 bytes escaped, one 0 sentinel appended
+    sentinel = InputRestrictions((), True)
+
+    # (a) the card against the CPU, and every decoder
+    raw = make_corpus(LCPCOMP_CHECK_MIB * MIB).tobytes()
+    small = np.frombuffer(escape(raw, sentinel), np.uint8)
+    t_cpu = torch.from_numpy(small.copy())
+    max_len = min(4096, max(4, small.size - 1))
+    lcp_card = lcpcomp._lcp_by_position(t_cpu.to(dev), max_len=max_len)
+    lcp_cpu = lcpcomp._lcp_by_position(t_cpu, max_len=max_len)
+    if not all(torch.equal(g.cpu(), w) for g, w in zip(lcp_card, lcp_cpu)):
+        raise AssertionError("_lcp_by_position: the card differs from the "
+                             "CPU")
+    with StatPhase("card") as on_card:
+        f_card = lcpcomp.factorize_device(small, 5, device=dev)
+    with StatPhase("cpu") as on_cpu:
+        f_cpu = lcpcomp.factorize_device(small, 5, device="cpu")
+    if (not all(np.array_equal(a, b) for a, b in zip(f_card, f_cpu))
+            or on_card.stats != on_cpu.stats):
+        raise AssertionError("factorize_device: the card differs from the "
+                             "CPU")
+    rounds_small = on_card.stats["device_rounds"]
+    rows = _trace_rows(lambda: lcpcomp._all_rounds(
+        torch.zeros(small.size, dtype=torch.bool, device=dev),
+        torch.zeros(small.size, dtype=torch.int32, device=dev),
+        lcp_card[0], 5, max_len=max_len))
+    launches = sum(k for _, k, _ in rows)
+    print(f"  {small.size} bytes: _lcp_by_position and factorize_device "
+          f"({f_card[0].size} factors, {rounds_small} rounds) on the card "
+          f"equal the CPU's; _all_rounds launched {launches} device "
+          f"operations in one trace ({launches / rounds_small:.1f} a round),"
+          f" the largest:")
+    for ms, count, name in rows[:5]:
+        print(f"    {ms:10.3f} ms  {count:5d}x  {name[:100]}")
+    algo = "lcpcomp(coder=huff,comp=device)"
+    blob = cli.compress(algo, raw, raw=True, device=dev)
+    for dec in LCPCOMP_DECS:
+        t0 = time.perf_counter()
+        out = cli.decompress(blob, algo[:-1] + f",dec={dec})", device=dev)
+        if out != raw:
+            raise AssertionError(f"dec={dec} did not restore the input")
+        print(f"  dec={dec} restores the comp=device container: "
+              f"{time.perf_counter() - t0:.3f} s ({card})")
+    del t_cpu, lcp_card, lcp_cpu
+
+    # (b) factorize_device alone, its two parts apart
+    lcpcomp_alone(dev, card, LCPCOMP_ALONE_MIB)
+    torch.cuda.empty_cache()
+
+    # (c) through the CLI
+    raw = make_corpus(LCPCOMP_CLI_MIB * MIB).tobytes()
+    n = len(escape(raw, sentinel))
+    walls = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "in.bin")
+        with open(path, "wb") as f:
+            f.write(raw)
+        for i, algo in enumerate(("lcpcomp(coder=huff,comp=device)",
+                                  "lcpcomp(coder=sle,comp=device)",
+                                  "lcpcomp(coder=huff,comp=arrays)")):
+            out = os.path.join(tmp, f"{i}.tdc")
+            walls[algo] = _cli([path, "-a", algo, "-f", "-o", out])
+            dec = out + ".dec"
+            wall_d = _cli([out, "-d", "-f", "-o", dec])
+            _same_file(dec, raw, f"-d of {algo}")
+            os.remove(dec)
+            with open(out, "rb") as f:
+                header, payload = f.read().split(b"%", 1)
+            env = REGISTRY.evaluate(header.decode(), torch_device=dev)
+            total, _, fpos, _, _ = parse_factor_arrays(
+                env.cls(env).coder_decoder(BitReader(payload)))
+            if total != n:
+                raise AssertionError(f"{algo}: {total} bytes parsed")
+            print(f"  -a {algo}: {walls[algo]:.3f} s, "
+                  f"{len(header) + 1 + len(payload)} bytes, {fpos.size} "
+                  f"factors; -d {wall_d:.3f} s ({card})")
+    ratio = (walls["lcpcomp(coder=huff,comp=device)"]
+             / walls["lcpcomp(coder=huff,comp=arrays)"])
+    print(f"  {LCPCOMP_CLI_MIB} MiB: every container restores the input; "
+          f"wall time comp=device / comp=arrays (huff) {ratio:.3f}")
+    # the host share: the factor flatten that every comp strategy runs
+    text = np.frombuffer(escape(raw, sentinel), np.uint8)
+    ds = TextDS(text.tobytes())
+    for comp, got in (
+            ("device", lcpcomp.factorize_device(text, 5, device=dev)),
+            ("arrays", native.lcpcomp_factorize(
+                ds.require_sa(), ds.require_isa(), ds.require_lcp(), 5))):
+        factors = FactorBuffer()
+        factors.extend_arrays(*got)
+        t0 = time.perf_counter()
+        factors.sort()
+        factors.flatten()
+        print(f"  FactorBuffer.sort + flatten of the comp={comp} factors: "
+              f"{time.perf_counter() - t0:.3f} s (host)")
+
+
+
 def require_launched(counts: dict, names) -> dict:
     """The path's launch counts; raises if one of its kernels never ran."""
     got = {k: counts[k] for k in names}
@@ -1222,6 +1471,16 @@ def require_launched(counts: dict, names) -> dict:
         raise AssertionError(f"kernels not launched on their path: "
                              f"{missing}")
     return got
+
+
+#: modules that the phases run, held to importing no JAX
+PORT_MODULES = (
+    "tudocomp_tpu_torch.models.blockcodec", "tudocomp_tpu_torch.cli",
+    "tudocomp_tpu_torch.ops.suffix", "tudocomp_tpu_torch.ops.lzss",
+    "tudocomp_tpu_torch.parallel.pipeline", "tudocomp_tpu_torch.ops.lcpcomp",
+    "tudocomp_tpu_torch.compressors.lcpcomp",
+    "tudocomp_tpu_torch.coders.sle",
+)
 
 
 def main() -> int:
@@ -1281,10 +1540,18 @@ def main() -> int:
     lz77_phase(dev, card)
     print("== phase 12: the sharded pipeline (parallel/) at 256 MiB")
     parallel_phase(corpus, dev, card, container)
-    del container
+    del container, corpus
+    print("== phase 13: device lcpcomp at 1 MiB, 16 MiB and 4 MiB")
+    lcpcomp_phase(dev, card)
     sources = dict(SOURCES)
     sources.update({c["name"]: (c["source"], c["replaces"]) for c in probes})
-    loaded = [m for m in ("jax", "tudocomp_tpu") if m in sys.modules]
+    # the modules of every phase ran in this process; none of them (nor
+    # anything they import) may have loaded JAX or the JAX package
+    unrun = [m for m in PORT_MODULES if m not in sys.modules]
+    if unrun:
+        raise AssertionError(f"modules of the phases not loaded: {unrun}")
+    loaded = sorted(m for m in sys.modules
+                    if m.split(".")[0] in ("jax", "jaxlib", "tudocomp_tpu"))
     if loaded:
         raise AssertionError(f"the port imported {loaded}")
     print(json.dumps({"kernels": [

@@ -820,6 +820,48 @@ def test_lzss_lcp_cli_on_card_matches_cpu(cuda, algo):
     assert cli.decompress(out) == data
 
 
+@pytest.mark.parametrize("max_len", [64, 4096])
+@pytest.mark.parametrize("n", [5, 513, 6000, 70000])
+def test_lcpcomp_lcp_by_position_on_card_matches_cpu(cuda, n, max_len):
+    from tudocomp_tpu_torch.ops import lcpcomp
+
+    text = np.frombuffer(_front_text(n, seed=n)[: n - 1] + b"\0", np.uint8)
+    t_cpu = torch.from_numpy(text.copy())
+    ml = min(max_len, max(4, n - 1))
+    got = lcpcomp._lcp_by_position(t_cpu.to(cuda), max_len=ml)
+    want = lcpcomp._lcp_by_position(t_cpu, max_len=ml)
+    assert torch.equal(got[0].cpu(), want[0])
+    assert torch.equal(got[1].cpu(), want[1])
+
+
+@pytest.mark.parametrize("threshold", [2, 5, 100])
+@pytest.mark.parametrize("n", [5, 513, 70000])
+def test_lcpcomp_factorize_device_on_card_matches_cpu(cuda, n, threshold):
+    from tudocomp_tpu_torch.ops import lcpcomp
+    from tudocomp_tpu_torch.stats import StatPhase
+
+    text = np.frombuffer(_front_text(n, seed=n)[: n - 1] + b"\0", np.uint8)
+    with StatPhase("card") as card:
+        got = lcpcomp.factorize_device(text, threshold)
+    with StatPhase("cpu") as cpu:
+        want = lcpcomp.factorize_device(text, threshold, device="cpu")
+    assert all(np.array_equal(a, b) for a, b in zip(got, want))
+    assert card.stats == cpu.stats
+
+
+@pytest.mark.parametrize("dec", ["scan", "compact", "MultimapListBuffer",
+                                 "QueueListBuffer"])
+@pytest.mark.parametrize("coder", ["ascii", "huff", "sle"])
+def test_lcpcomp_cli_on_card_matches_cpu(cuda, coder, dec):
+    from tudocomp_tpu_torch import cli
+
+    data = _front_text(100_000, seed=6)
+    algo = f"lcpcomp(coder={coder},comp=device,dec={dec})"
+    out = cli.compress(algo, data)
+    assert out == cli.compress(algo, data, device="cpu")
+    assert cli.decompress(out) == data
+
+
 # --- the sharded pipeline (parallel/) on the card ---------------------------
 
 

@@ -3,9 +3,10 @@
 Two shared libraries with a plain C interface, loaded with ``ctypes``:
 
 - the CUDA kernels (``csrc/*.cu``), compiled by ``nvcc`` for ``sm_90a``;
-- the host TBC2 parser and decoder, suffix array, BWT decode and LZ77
-  (factorizer, PLCP, factor-stream decode; ``csrc/host/*.cpp``),
-  compiled by the host C++ compiler.
+- the host TBC2 parser and decoder, suffix array, BWT decode, LZ77
+  (factorizer, PLCP, factor-stream decode), lcpcomp (factorizers,
+  compact decode) and SLE coder (``csrc/host/*.cpp``), compiled by the
+  host C++ compiler.
 
 Each is built at first use, from the package's own sources, into
 ``csrc/build/`` (git-ignored), and is keyed by a hash of its sources and
@@ -79,8 +80,8 @@ _SIGNATURES = {
     "tdc_probe_place": [_P, _P, _P, _I, _I, _I, _P],
 }
 
-#: host entry points (``csrc/host/tbc2.cpp``, ``csrc/host/suffix.cpp``,
-#: ``csrc/host/lzss.cpp``): name -> argtypes; each returns int64
+#: host entry points (``csrc/host/*.cpp``): name -> argtypes; each
+#: returns int64
 _HOST_SIGNATURES = {
     # payload, payload_len, count, lut_sym, lut_len, k, out
     "tdc_huffman_decode": [_P, _L, _L, _P, _P, _I, _P],
@@ -109,6 +110,35 @@ _HOST_SIGNATURES = {
                         _I, _P, _L, _P, _P, _P, _L, _P],
     # payload, nbits, pos, kind, out, cap
     "tdc_vlc_literals": [_P, _L, _L, _I, _P, _L],
+    # (``csrc/host/lcpcomp.cpp``) sa, isa, lcp (mutated), n, threshold,
+    # out_pos, out_src, out_len, cap (i64 / i32 arrays)
+    "tdc_lcpcomp_arrays": [_P, _P, _P, _L, _L, _P, _P, _P, _L],
+    "tdc_lcpcomp_arrays32": [_P, _P, _P, _L, _L, _P, _P, _P, _L],
+    "tdc_lcpcomp_heap": [_P, _P, _P, _L, _L, _P, _P, _P, _L],
+    "tdc_lcpcomp_heap32": [_P, _P, _P, _L, _L, _P, _P, _P, _L],
+    # n, lit_bytes, lit_pos, nlit, fpos, fsrc, flen, nfac, out
+    "tdc_lcpcomp_compact": [_L, _P, _P, _L, _P, _P, _P, _L, _P],
+    # sa, lcp (i64), n, threshold, fpos, fsrc, flen, fcap
+    "tdc_lcpcomp_bulldozer": [_P, _P, _L, _L, _P, _P, _P, _L],
+    # (``csrc/host/sle.cpp``) chars, n, kk, kmer_keys_out, max_kmers,
+    # lits_out, max_lits, n_lits_out
+    "tdc_sle_rank": [_P, _L, _I, _P, _L, _P, _L, _P],
+    # buf, n, limit, sorted_keys, key_rank, n_kmers, kk, lit_rank,
+    # values, lens, cap, ntok_inout
+    "tdc_sle_run_tokens": [_P, _L, _L, _P, _P, _L, _I, _P, _P, _P, _L,
+                           _P],
+    # payload, nbits, start_bit, kmers, n_kmers, kk, lits, n_lits, out,
+    # out_cap
+    "tdc_sle_decode": [_P, _L, _L, _P, _L, _I, _P, _L, _P, _L],
+    # text, n, fpos, fsrc, flen, nfac, w_src, w_len, w_dist, flen_min,
+    # sorted_keys, key_rank, n_kmers, kk, lit_rank, values, lens, cap
+    "tdc_factor_stream_sle": [_P, _L, _P, _P, _P, _L, _I, _I, _I, _L, _P,
+                              _P, _L, _I, _P, _P, _P, _L],
+    # payload, nbits, start_bit, n, flen_min, w_src, w_len, w_dist,
+    # kmers, n_kmers, kk, lits, n_lits, mode, out, out_cap, fpos, fsrc,
+    # flen, fcap, nfac_out
+    "tdc_lzss_decode_sle": [_P, _L, _L, _L, _L, _I, _I, _I, _P, _L, _I, _P,
+                            _L, _I, _P, _L, _P, _P, _P, _L, _P],
 }
 
 _lock = threading.Lock()

@@ -2,10 +2,10 @@
 Range types.
 
 Copy of ``tudocomp_tpu/coders/__init__.py`` for the non-consuming coders
-(the universal ones and ``huff``). Each coder class has nested
+(the universal ones and ``huff``) and the consuming ``sle``, which
+buffers literals before emitting. Each coder class has nested
 ``Encoder``/``Decoder`` classes (reference: ``Coder.hpp`` +
-``coders/``). The consuming coders (``arithmetic``, ``sle``), which
-buffer literals before emitting, are not ported yet.
+``coders/``). The consuming ``arithmetic`` is not ported yet.
 """
 
 from tudocomp_tpu_torch.coders.huffman import HuffmanCoder
@@ -16,6 +16,7 @@ from tudocomp_tpu_torch.coders.simple import (
     EliasGammaCoder,
     TernaryCoder,
 )
+from tudocomp_tpu_torch.coders.sle import SLECoder
 
 #: the coders usable for any value stream, interleaved freely, and the
 #: entropy coder that pre-scans literals but emits inline
@@ -25,6 +26,10 @@ NON_CONSUMING_CODERS = [ASCIICoder, BitCoder, EliasGammaCoder,
 #: CLI-enumeration name sets (reference ``etc/registry_config.py:12-37``)
 UNIVERSAL_CODER_NAMES = ("ascii", "bit", "gamma", "delta", "ternary")
 NON_CONSUMING_CODER_NAMES = UNIVERSAL_CODER_NAMES + ("huff",)
+LCPCOMP_CODER_NAMES = ("ascii", "huff", "sle")
+
+#: every coder the port registers
+ALL_CODERS = NON_CONSUMING_CODERS + [SLECoder]
 
 
 def native_code_kind(decoder):

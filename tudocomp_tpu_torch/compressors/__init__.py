@@ -1,27 +1,29 @@
 """Compressors of the port: transform input bytes to a compressed stream
 and back.
 
-Importing this package registers them, the non-consuming coders and
-the generators with the port's registry. It holds what the port has so
-far: ``tbc2``, ``bwt``, ``chain``, ``blocks`` and ``lzss_lcp``; the
-other families of ``tudocomp_tpu/compressors`` join as they are ported.
+Importing this package registers them, their strategies, the coders
+(the non-consuming ones and ``sle``) and the generators with the port's
+registry. It holds what the port has so far: ``tbc2``, ``bwt``,
+``chain``, ``blocks``, ``lzss_lcp`` and ``lcpcomp``; the other families
+of ``tudocomp_tpu/compressors`` join as they are ported.
 """
 
-from tudocomp_tpu_torch.coders import NON_CONSUMING_CODERS
+from tudocomp_tpu_torch.coders import ALL_CODERS
 from tudocomp_tpu_torch.compressors.base import Compressor  # noqa: F401
 from tudocomp_tpu_torch.compressors.blocks import BlocksCompressor
 from tudocomp_tpu_torch.compressors.bwt import BWTCompressor
 from tudocomp_tpu_torch.compressors.chain import ChainCompressor
+from tudocomp_tpu_torch.compressors.lcpcomp import LCPCOMP_CLASSES
 from tudocomp_tpu_torch.compressors.lzss import LZSSLCPCompressor
 from tudocomp_tpu_torch.compressors.tbc2 import TBC2Compressor
 from tudocomp_tpu_torch.generators import register_generators
 from tudocomp_tpu_torch.registry import REGISTRY
 
-for _coder in NON_CONSUMING_CODERS:
+for _coder in ALL_CODERS:
     REGISTRY.register(_coder)
 
 for _comp in (BWTCompressor, ChainCompressor, LZSSLCPCompressor,
-              BlocksCompressor, TBC2Compressor):
+              BlocksCompressor, TBC2Compressor, *LCPCOMP_CLASSES):
     REGISTRY.register(_comp)
 
 register_generators(REGISTRY)

@@ -15,10 +15,11 @@ bytes:
    host library's back-reference walk (``dec=host``) or by pointer
    doubling on the device (``dec=device``).
 
-The host parts run the port's host library (``csrc/host/lzss.cpp``),
-which raises when it cannot be built: there is no Python token walk
-behind it. The sliding-window ``lzss`` and the consuming coders are not
-ported yet.
+The host parts run the port's host library (``csrc/host/lzss.cpp``,
+``csrc/host/sle.cpp``), which raises when it cannot be built: there is
+no Python token walk behind it. The factor stream also carries
+``lcpcomp`` (``compressors/lcpcomp.py``), whose coders include the
+consuming ``sle``. The sliding-window ``lzss`` is not ported yet.
 """
 
 from __future__ import annotations
@@ -35,6 +36,7 @@ from tudocomp_tpu_torch.coders import (
 from tudocomp_tpu_torch.coders.base import Literals
 from tudocomp_tpu_torch.coders.huffman import HuffmanCoder
 from tudocomp_tpu_torch.coders.simple import BitCoder
+from tudocomp_tpu_torch.coders.sle import K as SLE_K, SLECoder
 from tudocomp_tpu_torch.compressors.base import Compressor
 from tudocomp_tpu_torch.device import resolve_device
 from tudocomp_tpu_torch.ds.suffix import TextDS
@@ -132,6 +134,63 @@ class FactorBuffer:
     def __iter__(self):
         return iter(self.factors)
 
+    def sort(self) -> None:
+        p, s, l = self.arrays()
+        order = np.argsort(p, kind="stable")
+        self._arr = (p[order], s[order], l[order])
+
+    def flatten(self) -> None:
+        """Rewrite factor sources that point into other factors to their
+        transitive origin (reference ``LZSSFactors.hpp:79-132``).
+        Vectorized: each round jumps every still-contained source one
+        level toward its origin (Jacobi form of the sequential rewrite;
+        containment guarantees the same fixed point). Requires factors
+        sorted by position (``lcpcomp`` sorts first, as the reference
+        does before its flatten pass)."""
+        pos, src, lng = self.arrays()
+        if pos.size == 0:
+            return
+        end = int(pos[-1] + lng[-1])
+        # fmap[p] = 1 + id of the factor covering p, else 0 — built by
+        # a forward-fill of start markers masked by a +-1 diff-scan
+        # coverage (the former per-covered-position repeat+ramp arrays
+        # were 32 transient bytes/char at 100 MB)
+        dt = np.int32 if end < (1 << 31) else np.int64
+        fmap = np.zeros(end, dt)
+        fmap[pos] = np.arange(1, pos.size + 1, dtype=dt)
+        np.maximum.accumulate(fmap, out=fmap)
+        delta = np.zeros(end + 1, np.int8)
+        delta[pos] += 1
+        delta[pos + lng] -= 1
+        covered = np.cumsum(delta[:end], dtype=np.int8) > 0
+        del delta
+        fmap[~covered] = 0
+        del covered
+        src = src.copy()
+        # iterate to the sequential fixed point: blocked intermediate
+        # factors (containment fails at some chain level) prevent true
+        # pointer doubling, so rounds are capped at the factor count —
+        # the scalar algorithm's own worst-case chain length. A few
+        # rounds on natural text; a periodic stretch takes about one
+        # round per period of its length (17,475 rounds at 4 MiB of
+        # bench.make_corpus, whose half is a text of period 124).
+        for _ in range(pos.size + 2):
+            inside = src < end
+            fi = np.where(inside, fmap[np.minimum(src, end - 1)], 0)
+            hit = fi > 0
+            if not hit.any():
+                break
+            s_idx = fi - 1
+            d = src - pos[s_idx]
+            ok = hit & (d + lng <= lng[s_idx])
+            if not ok.any():
+                break
+            nxt = np.where(ok, src[s_idx] + d, src)
+            if np.array_equal(nxt, src):
+                break
+            src = nxt
+        self._arr = (pos, src, lng)
+
 
 def uncovered_literals(text: np.ndarray, factors: FactorBuffer) -> Literals:
     """Literal iterator skipping factor-covered positions (reference
@@ -214,8 +273,10 @@ def _encode_factors_bulk(coder, text, factors, text_r, flen_r, fdist_r):
 
 def encode_factor_text(coder, text: np.ndarray, factors: FactorBuffer):
     """Shared factor-stream encoder (``lzss/LZSSCoding.hpp:19-92``): the
-    bulk token build for the bit and huff coders, the scalar loop for
-    ascii, gamma, delta and ternary (and for a stream without factors)."""
+    bulk token build for the bit and huff coders, the host library's
+    token build for ``sle`` while it holds no pending literal, the scalar
+    loop for ascii, gamma, delta and ternary (and for a stream without
+    factors)."""
     n = int(text.size)
     flen_min = factors.shortest if factors.shortest is not None else 0
     flen_max = factors.longest
@@ -243,6 +304,16 @@ def encode_factor_text(coder, text: np.ndarray, factors: FactorBuffer):
     ):
         _encode_factors_bulk(coder, text, factors, text_r, flen_r, fdist_r)
         coder.finish()
+        return
+
+    if len(factors) and isinstance(coder, SLECoder.Encoder) \
+            and not coder._pending:
+        coder.out.write_tokens(*native.factor_stream_sle_encode(
+            text, *factors.arrays(),
+            text_r.bits, flen_r.bits, fdist_r.bits, flen_r.min,
+            coder._sorted_keys, coder._key_rank, SLE_K,
+            coder._lit_rank32,
+        ))
         return
 
     p = 0
@@ -278,7 +349,20 @@ def _read_stream_header(decoder):
 def decode_stream_native(decoder, n, flen_r, text_r, fdist_r, mode=0):
     """The host library's factor-stream walk from the decoder's bit
     position. Mode 0 returns the reconstructed text bytes; mode 1
-    returns ``(literals, fpos, fsrc, flen)``."""
+    returns ``(literals, fpos, fsrc, flen)``. None for an ``sle``
+    decoder that holds a buffered k-mer tail (the caller walks the
+    stream symbol by symbol)."""
+    rd = decoder.inp
+    if isinstance(decoder, SLECoder.Decoder):
+        if decoder.buffer:
+            return None
+        res = native.lzss_decode_stream_sle(
+            np.packbits(rd._bits), rd.total, rd.pos, n, flen_r.min,
+            text_r.bits, flen_r.bits, fdist_r.bits,
+            b"".join(decoder.kmers), SLE_K, bytes(decoder.lits), mode=mode,
+        )
+        rd.pos = rd.total
+        return res
     lut = None
     if isinstance(decoder, HuffmanCoder.Decoder):
         kind = 0
@@ -291,7 +375,6 @@ def decode_stream_native(decoder, n, flen_r, text_r, fdist_r, mode=0):
             raise ValueError(
                 f"no factor-stream decoder for {type(decoder).__qualname__}"
             )
-    rd = decoder.inp
     res = native.lzss_decode_stream(
         np.packbits(rd._bits), rd.total, rd.pos, n, flen_r.min,
         text_r.bits, flen_r.bits, fdist_r.bits, lut, mode=mode,

@@ -1,13 +1,18 @@
 """Host TBC2 parse and decode, the host Huffman decode, the host suffix
-array, the host BWT decode and the host LZ77 (factorizer, PLCP,
-factor-stream decode, VLC literal tail).
+array, the host BWT decode, the host LZ77 (factorizer, PLCP,
+factor-stream decode, VLC literal tail), the host lcpcomp (arrays, heap
+and bulldozer factorizers, compact decode) and the host SLE coder.
 
-Bindings of ``csrc/host/tbc2.cpp``, ``csrc/host/suffix.cpp`` and
-``csrc/host/lzss.cpp`` (built by ``_build.build_host``); counterparts
-of ``tudocomp_tpu/native.py``'s ``tbc2_parse``, ``tbc2_decode``,
+Bindings of ``csrc/host/tbc2.cpp``, ``csrc/host/suffix.cpp``,
+``csrc/host/lzss.cpp``, ``csrc/host/lcpcomp.cpp`` and
+``csrc/host/sle.cpp`` (built by ``_build.build_host``); counterparts of
+``tudocomp_tpu/native.py``'s ``tbc2_parse``, ``tbc2_decode``,
 ``huffman_decode``, ``suffix_array`` (its SA-IS), ``bwt_decode``,
-``lzss_lcp_factorize``, ``plcp``, ``lzss_decode_stream`` and
-``vlc_literals``. A failed build raises: there is no Python fallback.
+``lzss_lcp_factorize``, ``plcp``, ``lzss_decode_stream``,
+``vlc_literals``, ``lcpcomp_factorize``, ``lcpcomp_compact_decode``,
+``lcpcomp_bulldozer``, ``sle_rank``, ``sle_run_tokens``, ``sle_decode``,
+``factor_stream_sle_encode`` and ``lzss_decode_stream_sle``. A failed
+build raises: there is no Python fallback.
 """
 
 from __future__ import annotations
@@ -219,3 +224,181 @@ def vlc_literals(payload: np.ndarray, nbits: int, start_bit: int,
         if got >= 0:
             return out[:got].tobytes()
         cap *= 4
+
+
+def lcpcomp_factorize(sa, isa, lcp, threshold: int, strategy="arrays"):
+    """lcpcomp ``arrays`` or ``heap`` factorization over SA/ISA/LCP (the
+    LCP is copied, the library truncates its copy). Returns (pos, src,
+    len) arrays of the inputs' index dtype (int32 or int64)."""
+    lib = _build.host_lib()
+    dt = np.int32 if np.asarray(sa).dtype == np.int32 else np.int64
+    name = "tdc_lcpcomp_" + ("heap" if strategy == "heap" else "arrays")
+    fn = getattr(lib, name + ("32" if dt == np.int32 else ""))
+    sa = np.ascontiguousarray(sa, dt)
+    isa = np.ascontiguousarray(isa, dt)
+    lcp = np.array(lcp, dt)
+    n = sa.size
+    # every factor zeroes >= threshold LCP entries, so the count is
+    # bounded by n / max(1, threshold)
+    cap = max(16, n // max(1, threshold) + 1)
+    pos = np.empty(cap, dt)
+    src = np.empty(cap, dt)
+    length = np.empty(cap, dt)
+    got = fn(_ptr(sa), _ptr(isa), _ptr(lcp), n, threshold, _ptr(pos),
+             _ptr(src), _ptr(length), cap)
+    if got < 0:
+        raise RuntimeError("factor buffer overflow")
+    return pos[:got], src[:got], length[:got]
+
+
+def lcpcomp_bulldozer(sa, lcp, threshold: int):
+    """The bulldozer interval sweep: (pos, src, len) int64 arrays."""
+    sa = np.ascontiguousarray(sa, np.int64)
+    lcp = np.ascontiguousarray(lcp, np.int64)
+    n = sa.size
+    cap = max(16, n + 1)
+    fpos = np.empty(cap, np.int64)
+    fsrc = np.empty(cap, np.int64)
+    flen = np.empty(cap, np.int64)
+    got = _build.host_lib().tdc_lcpcomp_bulldozer(
+        _ptr(sa), _ptr(lcp), n, threshold, _ptr(fpos), _ptr(fsrc),
+        _ptr(flen), cap)
+    if got < 0:
+        raise RuntimeError("factor buffer overflow")
+    return fpos[:got], fsrc[:got], flen[:got]
+
+
+def lcpcomp_compact_decode(n, lit_bytes, lit_pos, fpos, fsrc, flen) -> bytes:
+    """CompactDec's forward-bucket resolution of ``n`` bytes."""
+    lit_bytes = np.ascontiguousarray(lit_bytes, np.uint8)
+    lit_pos = np.ascontiguousarray(lit_pos, np.int64)
+    fpos = np.ascontiguousarray(fpos, np.int64)
+    fsrc = np.ascontiguousarray(fsrc, np.int64)
+    flen = np.ascontiguousarray(flen, np.int64)
+    out = np.empty(n, np.uint8)
+    got = _build.host_lib().tdc_lcpcomp_compact(
+        n, _ptr(lit_bytes), _ptr(lit_pos), lit_pos.size, _ptr(fpos),
+        _ptr(fsrc), _ptr(flen), fpos.size, _ptr(out))
+    if got == -2:
+        raise ValueError("malformed lcpcomp factor stream")
+    if got == -3:
+        raise ValueError("unresolvable lcpcomp factor chain")
+    return out.tobytes()
+
+
+def sle_rank(chars: np.ndarray, kk: int, max_kmers: int, max_lits: int):
+    """SLE rank tables: (k-mer keys int64, literal bytes u8), each by
+    descending count, ties by value."""
+    chars = np.ascontiguousarray(chars, np.uint8)
+    keys = np.empty(max(1, max_kmers), np.int64)
+    lits = np.empty(max(1, max_lits), np.uint8)
+    n_lits = ctypes.c_int64(0)
+    nk = _build.host_lib().tdc_sle_rank(
+        _ptr(chars), chars.size, kk, _ptr(keys), max_kmers, _ptr(lits),
+        max_lits, ctypes.addressof(n_lits))
+    return keys[:nk], lits[: n_lits.value]
+
+
+def sle_run_tokens(buf: np.ndarray, limit: int, sorted_keys: np.ndarray,
+                   key_rank: np.ndarray, kk: int, lit_rank: np.ndarray):
+    """SLE greedy-matcher tokens for the emissions of one literal run
+    that start below ``limit``: (consumed, values u64, lens i64)."""
+    buf = np.ascontiguousarray(buf, np.uint8)
+    sorted_keys = np.ascontiguousarray(sorted_keys, np.int64)
+    key_rank = np.ascontiguousarray(key_rank, np.int64)
+    lit_rank = np.ascontiguousarray(lit_rank, np.int32)
+    n = buf.size
+    cap = 3 * max(1, n) + 4
+    values = np.empty(cap, np.uint64)
+    lens = np.empty(cap, np.int64)
+    ntok = ctypes.c_int64(0)
+    got = _build.host_lib().tdc_sle_run_tokens(
+        _ptr(buf), n, limit, _ptr(sorted_keys), _ptr(key_rank),
+        sorted_keys.size, kk, _ptr(lit_rank), _ptr(values), _ptr(lens),
+        cap, ctypes.addressof(ntok))
+    if got < 0:
+        raise RuntimeError("sle token overflow")
+    m = ntok.value
+    return int(got), values[:m], lens[:m]
+
+
+def _sle_tables(kmers: bytes, lits: bytes):
+    """The k-mer and literal tables as u8 arrays (one zero byte when
+    empty: the library reads no entry of an empty table)."""
+    km = np.frombuffer(kmers, np.uint8) if kmers else np.zeros(1, np.uint8)
+    lt = np.frombuffer(lits, np.uint8) if lits else np.zeros(1, np.uint8)
+    return km, lt
+
+
+def sle_decode(payload, nbits, start_bit, kmers: bytes, n_kmers, k,
+               lits: bytes) -> bytes:
+    """Decode an SLE literal stream from ``start_bit`` to ``nbits``."""
+    payload = np.ascontiguousarray(payload, np.uint8)
+    km, lt = _sle_tables(kmers, lits)
+    cap = max(64, nbits)
+    while True:
+        out = np.empty(cap, np.uint8)
+        got = _build.host_lib().tdc_sle_decode(
+            _ptr(payload), nbits, start_bit, _ptr(km), n_kmers, k, _ptr(lt),
+            len(lits), _ptr(out), cap)
+        if got == -2:
+            raise ValueError("malformed sle stream")
+        if got >= 0:
+            return out[:got].tobytes()
+        cap *= 4
+
+
+def factor_stream_sle_encode(text: np.ndarray, fpos, fsrc, flen,
+                             w_src: int, w_len: int, w_dist: int,
+                             flen_min: int, sorted_keys, key_rank,
+                             kk: int, lit_rank):
+    """The factor-stream body after its 4 header fields, with SLE-coded
+    gap literals: (values u64, lens i64) tokens."""
+    text = np.ascontiguousarray(text, np.uint8)
+    fpos = np.ascontiguousarray(fpos, np.int64)
+    fsrc = np.ascontiguousarray(fsrc, np.int64)
+    flen = np.ascontiguousarray(flen, np.int64)
+    sorted_keys = np.ascontiguousarray(sorted_keys, np.int64)
+    key_rank = np.ascontiguousarray(key_rank, np.int64)
+    lit_rank = np.ascontiguousarray(lit_rank, np.int32)
+    gap_bytes = text.size - int(flen.sum())
+    cap = 3 * max(1, gap_bytes) + 4 * fpos.size + 8
+    values = np.empty(cap, np.uint64)
+    lens = np.empty(cap, np.int64)
+    got = _build.host_lib().tdc_factor_stream_sle(
+        _ptr(text), text.size, _ptr(fpos), _ptr(fsrc), _ptr(flen),
+        fpos.size, w_src, w_len, w_dist, flen_min, _ptr(sorted_keys),
+        _ptr(key_rank), sorted_keys.size, kk, _ptr(lit_rank), _ptr(values),
+        _ptr(lens), cap)
+    if got < 0:
+        raise RuntimeError("sle factor-stream token overflow")
+    return values[:got], lens[:got]
+
+
+def lzss_decode_stream_sle(payload, nbits, start_bit, n, flen_min,
+                           w_src, w_len, w_dist, kmers: bytes, kk: int,
+                           lits: bytes, mode=0):
+    """Factor-stream decode with SLE-coded gap literals; returns as
+    :func:`lzss_decode_stream` does."""
+    payload = np.ascontiguousarray(payload, np.uint8)
+    km, lt = _sle_tables(kmers, lits)
+    out_cap = max(64, n + 64)
+    out = np.empty(out_cap, np.uint8)
+    fcap = max(16, n + 1)
+    fpos = np.empty(fcap, np.int64)
+    fsrc = np.empty(fcap, np.int64)
+    flen = np.empty(fcap, np.int64)
+    nfac = ctypes.c_int64(0)
+    got = _build.host_lib().tdc_lzss_decode_sle(
+        _ptr(payload), nbits, start_bit, n, flen_min, w_src, w_len, w_dist,
+        _ptr(km), len(kmers) // kk if kmers else 0, kk, _ptr(lt),
+        len(lits), mode, _ptr(out), out_cap, _ptr(fpos), _ptr(fsrc),
+        _ptr(flen), fcap, ctypes.addressof(nfac))
+    if got == -2:
+        raise ValueError("malformed sle factor stream")
+    if got < 0:
+        raise RuntimeError("factor decode overflow")
+    if mode == 0:
+        return out[:got].tobytes()
+    m = nfac.value
+    return out[:got], fpos[:m], fsrc[:m], flen[:m]

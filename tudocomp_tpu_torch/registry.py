@@ -8,10 +8,10 @@ declared defaults (which may themselves be algorithm strings). The result
 is a resolved ``Env`` tree ready for instantiation.
 
 A copy of ``tudocomp_tpu/registry.py`` for the port, with two changes:
-evaluation takes the torch device (``torch_device``, ``"cuda"`` by
-default) and hands it to every ``Env`` of the tree, and the matrix
-enumeration (``all_configurations``) is left out until the port has the
-compressor and coder families it enumerates.
+evaluation (and ``create_algo``) takes the torch device
+(``torch_device``, ``"cuda"`` by default) and hands it to every ``Env``
+of the tree, and the matrix enumeration (``all_configurations``) is left
+out until the port has the compressor and coder families it enumerates.
 """
 
 from __future__ import annotations
@@ -176,3 +176,23 @@ class Registry:
 # The global registry, populated by tudocomp_tpu_torch.compressors.
 REGISTRY = Registry()
 
+
+
+def create_algo(cls: Type[Algorithm], options: str = "", registry=None,
+                torch_device="cuda"):
+    """Instantiate an algorithm class directly with an option string.
+
+    Equivalent to the reference's ``create_algo<T>(options)``
+    (``CreateAlgorithm.hpp:117-133``) — the test/library entry point.
+    Sub-algorithm defaults resolve against ``registry`` (the global one by
+    default); ``cls`` itself is made resolvable in a local copy if needed.
+    """
+    m = cls.meta()
+    reg = registry if registry is not None else REGISTRY
+    if reg._by_type.get(m.type, {}).get(m.name) is not cls:
+        copy = Registry()
+        copy._by_type = {t: dict(b) for t, b in reg._by_type.items()}
+        copy._by_type.setdefault(m.type, {})[m.name] = cls
+        reg = copy
+    text = f"{m.name}({options})" if options else m.name
+    return reg.instantiate(text, m.type, torch_device)
