@@ -104,10 +104,24 @@ It needs one CUDA device and exits non-zero without one. Phases:
    the input, with wall times, bytes, factors, the wall-time ratio
    device/arrays, and the host flatten of each strategy's factors. (b)
    and (c) run below phases 10 and 11's 64 and 15 MiB:
-   ``LCPCOMP_*_MIB`` says why.
+   ``LCPCOMP_*_MIB`` says why;
+14. the device ESP rounds (``ops/esp.py``) behind ``esp rounds=device``,
+   on ``bench.make_corpus``: (a) at 1 MiB the rules and root on the card
+   (at ``tail_cutoff`` 4096 and 1) equal the CPU run's and the host
+   library's, with the same round counts; (b) at 64 MiB
+   ``esp_rounds_device`` against the host library (equal rules, both
+   timed), its host syncs (``torch.cuda``'s sync debug mode: one a round
+   plus the hand-off), the device and host rounds, the host tail's ms,
+   the peak device memory and its bytes a position, each device round
+   again by CUDA events with its layer's length, and the five largest
+   device operations of one trace of round 1; (c) at 16 MiB ``-a
+   "esp(rounds=device)"`` and ``-a esp`` through ``cli.main``: the same
+   payload, each ``-d`` back to the input, wall times; (d) at 16 MiB ``-a
+   "bwt(device=true):rle:mtf:encode(coder=arithmetic)"`` against ``-a
+   "bwt:rle:mtf:encode(coder=arithmetic)"`` the same way.
 
-Every time of phases 8-13 is printed with the card's name and power
-limit.
+Every time of phases 8-14 is printed with the card's name and power
+limit, and so is the whole run's wall time.
 
 Each kernel's line carries its bound: the bytes it must move (inputs
 read once, outputs written once, counted from this run's data) over the
@@ -1463,6 +1477,146 @@ def lcpcomp_phase(dev, card: str) -> None:
 
 
 
+#: phase 14: the input sizes of its parts, in MiB: (a) the card against
+#: the CPU and the host library, (b) the device rounds alone, (c) -a
+#: "esp(rounds=device)" against -a esp through the CLI and (d) the
+#: literal chain through the CLI
+ESP_CHECK_MIB, ESP_ALONE_MIB, ESP_CLI_MIB, CHAIN_MIB = 1, 64, 16, 16
+
+
+def esp_alone(dev, card: str, mib: int) -> None:
+    """Phase 14 (b): ``esp_rounds_device`` on ``mib`` MiB of the corpus
+    against the host library, with its host syncs, the host tail, the
+    peak device memory, each device round again by CUDA events, and one
+    trace of round 1."""
+    import numpy as np
+    import torch
+
+    from bench import make_corpus
+    from tudocomp_tpu_torch import native
+    from tudocomp_tpu_torch.compressors.esp import iter_log
+    from tudocomp_tpu_torch.ops import esp
+
+    data = make_corpus(mib * MIB).tobytes()
+    n = len(data)
+    t0 = time.perf_counter()
+    rules_h, root_h = native.esp_rounds(data)
+    host_s = time.perf_counter() - t0
+    stats = {}
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    mem0 = torch.cuda.memory_allocated()
+    t0 = time.perf_counter()
+    (rules, root, _), syncs = _syncs(
+        lambda: esp.esp_rounds_device(data, device=dev, stats=stats))
+    wall = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated() - mem0
+    if root != root_h or not np.array_equal(rules, rules_h):
+        raise AssertionError("esp_rounds_device: the card differs from the "
+                             "host library")
+    rounds = stats["device_rounds"]
+    # the same device rounds again, each timed by CUDA events
+    s0 = torch.from_numpy(np.frombuffer(data, np.uint8).copy()).to(dev)
+    s = s0 = s0.long()
+    base, lens = 256, []
+    events = [torch.cuda.Event(enable_timing=True)]
+    events[0].record()
+    while s.numel() > 4096:
+        lens.append(s.numel())
+        s, _, r = esp._esp_round(s, iter_log(256 if base == 256 else 257),
+                                 base, base == 256)
+        base += r
+        events.append(torch.cuda.Event(enable_timing=True))
+        events[-1].record()
+    torch.cuda.synchronize()
+    ms = [a.elapsed_time(b) for a, b in zip(events, events[1:])]
+    if len(ms) != rounds or base - 256 != stats["device_rules"]:
+        raise AssertionError("the timed rounds differ from the call's")
+    print(f"  {n} bytes ({card}): host library {host_s:.3f} s; "
+          f"esp_rounds_device {wall:.3f} s wall: {rounds} device rounds "
+          f"of {sum(ms):.3f} ms ({sum(ms) / rounds:.3f} ms a round, CUDA "
+          f"events), then {stats['tail_rounds']} host rounds in "
+          f"{stats['tail_s'] * 1e3:.3f} ms; {syncs} host syncs ({rounds} "
+          f"rounds + the hand-off); peak device memory {peak / MIB:.1f} "
+          f"MiB ({peak / n:.1f} bytes a position); {rules.shape[0]} rules, "
+          f"equal to the host library's")
+    print("  layer length and ms of each device round: "
+          + ", ".join(f"{k} {t:.3f}" for k, t in zip(lens, ms)))
+    del s
+    top = _trace_top(lambda: esp._esp_round(s0, iter_log(256), 256, True),
+                     5)
+    print("  device round 1, largest device operations of one trace:")
+    for t, count, name in top:
+        print(f"    {t:10.3f} ms  {count:5d}x  {name[:100]}")
+
+
+def esp_phase(dev, card: str) -> None:
+    """Phase 14: the device ESP rounds (``ops/esp.py``) at 1 MiB against
+    the CPU and the host library, alone at 64 MiB, ``esp(rounds=device)``
+    through the CLI at 16 MiB, and the literal chain
+    ``bwt:rle:mtf:encode(coder=arithmetic)`` through the CLI."""
+    import os
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    from bench import make_corpus
+    from tudocomp_tpu_torch.compressors.esp import esp_rounds
+    from tudocomp_tpu_torch.ops.esp import esp_rounds_device
+
+    # (a) the card against the CPU and the host library
+    raw = make_corpus(ESP_CHECK_MIB * MIB).tobytes()
+    want = esp_rounds(raw)
+    on_card, on_cpu = {}, {}
+    got = [esp_rounds_device(raw, device=dev, stats=on_card),
+           esp_rounds_device(raw, device="cpu", stats=on_cpu),
+           esp_rounds_device(raw, tail_cutoff=1, device=dev)]
+    for g in got:
+        if g[1:] != want[1:] or not np.array_equal(g[0], want[0]):
+            raise AssertionError("esp_rounds_device differs from the host "
+                                 "library")
+    if on_card != {**on_cpu, "tail_s": on_card["tail_s"]}:
+        raise AssertionError(f"rounds on the card {on_card}, on the CPU "
+                             f"{on_cpu}")
+    print(f"  {len(raw)} bytes: rules and root on the card (tail_cutoff "
+          f"4096 and 1) == the CPU's == the host library's "
+          f"({want[0].shape[0]} rules; {on_card['device_rounds']} device "
+          f"rounds, {on_card['tail_rounds']} host rounds)")
+
+    # (b) the device rounds alone
+    esp_alone(dev, card, ESP_ALONE_MIB)
+    torch.cuda.empty_cache()
+
+    # (c), (d) through the CLI
+    with tempfile.TemporaryDirectory() as tmp:
+        for mib, pair in (
+                (ESP_CLI_MIB, ("esp(rounds=device)", "esp")),
+                (CHAIN_MIB, ("bwt(device=true):rle:mtf:"
+                             "encode(coder=arithmetic)",
+                             "bwt:rle:mtf:encode(coder=arithmetic)"))):
+            raw = make_corpus(mib * MIB).tobytes()
+            path = os.path.join(tmp, "in.bin")
+            with open(path, "wb") as f:
+                f.write(raw)
+            payloads, line = [], []
+            for i, algo in enumerate(pair):
+                out = os.path.join(tmp, f"{i}.tdc")
+                wall = _cli([path, "-a", algo, "-f", "-o", out])
+                dec = out + ".dec"
+                wall_d = _cli([out, "-d", "-f", "-o", dec])
+                _same_file(dec, raw, f"-d of {algo}")
+                os.remove(dec)
+                with open(out, "rb") as f:
+                    payloads.append(f.read().split(b"%", 1)[1])
+                line.append(f"-a {algo}: {wall:.3f} s, -d {wall_d:.3f} s")
+            if payloads[0] != payloads[1]:
+                raise AssertionError(f"{pair[0]} and {pair[1]} write "
+                                     f"different payloads")
+            print(f"  {mib} MiB ({card}): " + "; ".join(line)
+                  + f"; the same {len(payloads[0])}-byte payload, and "
+                  f"each -d restores the input")
+
 def require_launched(counts: dict, names) -> dict:
     """The path's launch counts; raises if one of its kernels never ran."""
     got = {k: counts[k] for k in names}
@@ -1479,7 +1633,12 @@ PORT_MODULES = (
     "tudocomp_tpu_torch.ops.suffix", "tudocomp_tpu_torch.ops.lzss",
     "tudocomp_tpu_torch.parallel.pipeline", "tudocomp_tpu_torch.ops.lcpcomp",
     "tudocomp_tpu_torch.compressors.lcpcomp",
-    "tudocomp_tpu_torch.coders.sle",
+    "tudocomp_tpu_torch.coders.sle", "tudocomp_tpu_torch.ops.esp",
+    "tudocomp_tpu_torch.compressors.esp",
+    "tudocomp_tpu_torch.compressors.esp_dcoding",
+    "tudocomp_tpu_torch.coders.arithmetic",
+    "tudocomp_tpu_torch.compressors.rle", "tudocomp_tpu_torch.compressors.mtf",
+    "tudocomp_tpu_torch.compressors.literal",
 )
 
 
@@ -1491,6 +1650,7 @@ def main() -> int:
         return 1
     from bench import make_corpus
 
+    t_start = time.perf_counter()
     dev = torch.device("cuda", 0)
     print("== phase 1: toolchain")
     card = toolchain()
@@ -1543,6 +1703,8 @@ def main() -> int:
     del container, corpus
     print("== phase 13: device lcpcomp at 1 MiB, 16 MiB and 4 MiB")
     lcpcomp_phase(dev, card)
+    print("== phase 14: device ESP at 1 MiB and 64 MiB, the CLI at 16 MiB")
+    esp_phase(dev, card)
     sources = dict(SOURCES)
     sources.update({c["name"]: (c["source"], c["replaces"]) for c in probes})
     # the modules of every phase ran in this process; none of them (nor
@@ -1554,6 +1716,7 @@ def main() -> int:
                     if m.split(".")[0] in ("jax", "jaxlib", "tudocomp_tpu"))
     if loaded:
         raise AssertionError(f"the port imported {loaded}")
+    print(f"whole run: {time.perf_counter() - t_start:.1f} s ({card})")
     print(json.dumps({"kernels": [
         {"name": name, "route": "cuda", "source": src, "replaces": rep,
          "launches": launches[name], **check.res[name]}

@@ -953,3 +953,39 @@ def test_sharded_crash_and_resume_on_the_card(cuda, tmp_path):
     got = run_ranks(ranks.journaled, 2, device="cuda", backend="gloo",
                     args=(src, dst, True), timeout=300)[0]
     assert got == BlockCodec(device=cuda).compress(ranks.resume_data())
+
+
+# --- the device ESP rounds (ops/esp.py) on the card --------------------------
+
+
+@pytest.mark.parametrize("tail_cutoff", [1, 4096])
+@pytest.mark.parametrize("n", [9, 513, 4097, 70000, 300_000])
+def test_esp_rounds_on_card_match_cpu_and_host(cuda, n, tail_cutoff):
+    """Rules, root and ``empty`` on the card equal the CPU run and the
+    host library's loop; the device rounds are the CPU's."""
+    from tudocomp_tpu_torch.compressors.esp import esp_rounds
+    from tudocomp_tpu_torch.ops.esp import esp_rounds_device
+
+    data = _front_text(n, seed=n)
+    on_card, on_cpu = {}, {}
+    got = esp_rounds_device(data, tail_cutoff=tail_cutoff, stats=on_card)
+    want = esp_rounds_device(data, tail_cutoff=tail_cutoff, device="cpu",
+                             stats=on_cpu)
+    host = esp_rounds(data)
+    for g in (got, want):
+        assert np.array_equal(g[0], host[0])
+        assert g[1:] == host[1:]
+    assert on_card["device_rounds"] == on_cpu["device_rounds"]
+
+
+@pytest.mark.parametrize("algo", ["esp(rounds=device)",
+                                  "esp(rounds=device,slp_coder=plain)"])
+def test_esp_rounds_device_container_on_card_matches_cpu(cuda, algo):
+    from tudocomp_tpu_torch import cli
+
+    data = _front_text(200_000, seed=8)
+    out = cli.compress(algo, data)
+    assert out == cli.compress(algo, data, device="cpu")
+    assert cli.compress(algo.replace("rounds=device", "rounds=host"),
+                        data, raw=True) == out.split(b"%", 1)[1]
+    assert cli.decompress(out) == data

@@ -5,8 +5,10 @@ Two shared libraries with a plain C interface, loaded with ``ctypes``:
 - the CUDA kernels (``csrc/*.cu``), compiled by ``nvcc`` for ``sm_90a``;
 - the host TBC2 parser and decoder, suffix array, BWT decode, LZ77
   (factorizer, PLCP, factor-stream decode), lcpcomp (factorizers,
-  compact decode) and SLE coder (``csrc/host/*.cpp``), compiled by the
-  host C++ compiler.
+  compact decode), SLE coder, ESP (round loop, SLP derivation and
+  dependency sort, monotone decomposition) and the literal-stream
+  kernels (MTF, chunked RLE decode, Huffman count, arithmetic coder)
+  (``csrc/host/*.cpp``), compiled by the host C++ compiler.
 
 Each is built at first use, from the package's own sources, into
 ``csrc/build/`` (git-ignored), and is keyed by a hash of its sources and
@@ -139,6 +141,30 @@ _HOST_SIGNATURES = {
     # flen, fcap, nfac_out
     "tdc_lzss_decode_sle": [_P, _L, _L, _L, _L, _I, _I, _I, _P, _L, _I, _P,
                             _L, _I, _P, _L, _P, _P, _P, _L, _P],
+    # (``csrc/host/tbc2.cpp``) in, n, out, out_cap, offset
+    "tdc_rle_decode": [_P, _L, _P, _L, _L],
+    # (``csrc/host/esp.cpp``) text, n, rules_out (i32 pairs), rules_cap,
+    # root_out
+    "tdc_esp_rounds": [_P, _L, _P, _L, _P],
+    # pairs, nrules, root, out, out_cap
+    "tdc_slp_derive": [_P, _L, _L, _P, _L],
+    # rules, n, root, out, new_root_out
+    "tdc_slp_dep_sort": [_P, _L, _L, _P, _P],
+    # sis, n, dpi_out, b_out, b_cap
+    "tdc_monotone_decompose": [_P, _L, _P, _P, _L],
+    # (``csrc/host/literal.cpp``) in, out, n (and the carried table)
+    "tdc_mtf_encode": [_P, _P, _L],
+    "tdc_mtf_decode": [_P, _P, _L],
+    "tdc_mtf_encode_s": [_P, _P, _L, _P],
+    "tdc_mtf_decode_s": [_P, _P, _L, _P],
+    # in, n, out, out_cap, offset, prev_io, final_chunk, consumed_out
+    "tdc_rle_decode_s": [_P, _L, _P, _L, _L, _P, _I, _P],
+    # payload, nbits, lut_len, k
+    "tdc_huffman_count": [_P, _L, _P, _I],
+    # data, n, cum (u64[256]), total, out_codes, cap
+    "tdc_arith_encode": [_P, _L, _P, ctypes.c_uint64, _P, _L],
+    # payload, nbits, start_bit, syms, cums, sigma, total, count, out
+    "tdc_arith_decode": [_P, _L, _L, _P, _P, _L, ctypes.c_uint64, _L, _P],
 }
 
 _lock = threading.Lock()

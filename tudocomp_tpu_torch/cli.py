@@ -24,9 +24,12 @@ declared input restrictions (escaping + null sentinel) outside the
 compressor, mirroring ``tudocomp_driver.cpp:268-270``.
 
 The port's counterpart of ``tudocomp_tpu/cli.py``: the same flags and
-headers, over the port's registry (``tbc2``, ``bwt``, ``chain``,
-``blocks`` and the generators so far), so that each package's CLI
-decodes the other's output. The torch device is a run-time argument
+headers, over the port's registry (``noop``, ``encode``, ``rle``,
+``mtf``, ``tbc2``, ``bwt``, ``chain``, ``blocks``, ``lzss_lcp``,
+``lcpcomp``, ``esp`` and the generators so far), so that each package's
+CLI decodes the other's output. A file compressed by an algorithm that
+streams (``noop``, ``rle``, ``mtf``) goes one pass in constant memory,
+with the buffered path's bytes. The torch device is a run-time argument
 (``device``, ``--device``), never part of the algorithm string.
 """
 
@@ -124,8 +127,10 @@ def decompress(
 def _stream_main(args, p) -> int | None:
     """Constant-memory file paths: ``--blocks`` compression and
     block-container decompression stream one block at a time instead of
-    materializing input + output (peak RSS is O(block size)). Returns
-    an exit code, or None to fall back to the buffered path."""
+    materializing input + output (peak RSS is O(block size)), and the
+    streaming compressors (``supports_streaming``) compress and
+    decompress in one pass. Returns an exit code, or None to take the
+    buffered path."""
     import os
 
     if args.usestdin or args.generator or not args.input:
@@ -198,12 +203,20 @@ def _stream_main(args, p) -> int | None:
         if args.blocks:
             p.error("-a ALGORITHM required for compression")
         return None
-    if not args.blocks:
-        # the port has no one-pass streaming compressor (the JAX
-        # package's rle/mtf/lzss) yet: the buffered path compresses
-        return None
-    comp = _instantiate(args.algorithm, blocks=parse_size(args.blocks),
-                        threads=args.threads, device=args.device)
+    if args.blocks:
+        comp = _instantiate(args.algorithm, blocks=parse_size(args.blocks),
+                            threads=args.threads, device=args.device)
+    else:
+        # one-pass streaming compressors: O(chunk) memory without the
+        # blocks wrapper, reference as_stream() parity
+        # (io/Input.hpp:199-208); the output equals the buffered
+        # path's, so files take it by default. --resume and input
+        # restrictions (escaping, a sentinel) need the buffered path
+        comp = _instantiate(args.algorithm, device=args.device)
+        if not getattr(comp, "supports_streaming", False) \
+                or args.resume \
+                or REGISTRY.restrictions_of(comp.env).has_restrictions:
+            return None
     header = b"" if args.raw else comp.env.id_string().encode() + b"%"
     if args.usestdout:
         with open(args.input, "rb") as fin, root:

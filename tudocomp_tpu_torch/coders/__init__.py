@@ -1,13 +1,14 @@
 """Coders of the port: bit-level integer encode/decode dispatched on
 Range types.
 
-Copy of ``tudocomp_tpu/coders/__init__.py`` for the non-consuming coders
-(the universal ones and ``huff``) and the consuming ``sle``, which
-buffers literals before emitting. Each coder class has nested
-``Encoder``/``Decoder`` classes (reference: ``Coder.hpp`` +
-``coders/``). The consuming ``arithmetic`` is not ported yet.
+Copy of ``tudocomp_tpu/coders/__init__.py``: the non-consuming coders
+(the universal ones and ``huff``) and the consuming ``arithmetic`` and
+``sle``, which buffer literals before emitting and cannot be interleaved
+with other coders on one stream. Each coder class has nested
+``Encoder``/``Decoder`` classes (reference: ``Coder.hpp`` + ``coders/``).
 """
 
+from tudocomp_tpu_torch.coders.arithmetic import ArithmeticCoder
 from tudocomp_tpu_torch.coders.huffman import HuffmanCoder
 from tudocomp_tpu_torch.coders.simple import (
     ASCIICoder,
@@ -23,13 +24,16 @@ from tudocomp_tpu_torch.coders.sle import SLECoder
 NON_CONSUMING_CODERS = [ASCIICoder, BitCoder, EliasGammaCoder,
                         EliasDeltaCoder, TernaryCoder, HuffmanCoder]
 
+#: the entropy coders that consume (buffer) literals
+CONSUMING_ENTROPY_CODERS = [ArithmeticCoder, SLECoder]
+
 #: CLI-enumeration name sets (reference ``etc/registry_config.py:12-37``)
 UNIVERSAL_CODER_NAMES = ("ascii", "bit", "gamma", "delta", "ternary")
 NON_CONSUMING_CODER_NAMES = UNIVERSAL_CODER_NAMES + ("huff",)
 LCPCOMP_CODER_NAMES = ("ascii", "huff", "sle")
 
 #: every coder the port registers
-ALL_CODERS = NON_CONSUMING_CODERS + [SLECoder]
+ALL_CODERS = NON_CONSUMING_CODERS + CONSUMING_ENTROPY_CODERS
 
 
 def native_code_kind(decoder):

@@ -2,8 +2,9 @@
 token packer.
 
 Copy of the parts of ``tudocomp_tpu/io/bitio.py`` that the port calls
-(the TBC2 header, the Huffman table serialisation and the coders'
-integer codes: unary, ternary, Elias gamma and delta); semantics follow
+(the TBC2 header, the Huffman table serialisation, the coders' integer
+codes: unary, ternary, Elias gamma and delta, and the bulk reads and
+writes of the SLP coders); semantics follow
 that package's ``io/spec.md``. The writer is token-buffered: every write
 appends ``(value, len)`` tokens (len <= 32) and the byte stream is
 produced in one vectorised pass at :meth:`BitWriter.getvalue`.
@@ -187,6 +188,24 @@ class BitWriter:
         values = np.asarray(values, dtype=np.uint64)
         self.write_tokens(values, np.full(values.shape, bits, np.int32))
 
+    def write_unary_array(self, values) -> None:
+        values = np.asarray(values, dtype=np.int64)
+        if (values < 32).all():
+            self.write_tokens(
+                np.ones(values.shape, np.uint64), (values + 1)
+            )
+            return
+        # wide values: ceil(v / 31) tokens each, (v % 31) zeros and the
+        # terminating one, after 31-zero filler tokens
+        n_fill = values // 31
+        total = int(n_fill.sum()) + values.size
+        tv = np.zeros(total, np.uint64)
+        tl = np.full(total, 31, np.int64)
+        ends = np.cumsum(n_fill + 1) - 1
+        tv[ends] = 1
+        tl[ends] = values % 31 + 1
+        self.write_tokens(tv, tl)
+
     def write_gamma_array(self, values) -> None:
         values = np.asarray(values, dtype=np.uint64)
         nb = bits_for_arr(values).astype(np.int64)
@@ -289,6 +308,7 @@ class BitReader:
         )
         self._wl = None  # packed words as Python ints (lazy, scalar reads)
         self._ones = None  # positions of the one bits (lazy, unary reads)
+        self._words = None  # packed 64-bit words (lazy, bulk reads)
         self.pos = 0
 
     def eof(self) -> bool:
@@ -366,12 +386,36 @@ class BitReader:
         return value
 
     def _packed_words(self) -> np.ndarray:
-        """Big-endian 64-bit words over the bit stream, padded with two
-        zero words so any (word, word+1) window is in range."""
-        by = np.packbits(self._bits)
-        pad = (-by.size) % 8 + 16
-        by = np.concatenate([by, np.zeros(pad, np.uint8)])
-        return by.view(">u8").astype(np.uint64)
+        """Big-endian 64-bit words over the bit stream (cached), padded
+        with two zero words so any (word, word+1) window is in range."""
+        if self._words is None:
+            by = np.packbits(self._bits)
+            pad = (-by.size) % 8 + 16
+            by = np.concatenate([by, np.zeros(pad, np.uint8)])
+            self._words = by.view(">u8").astype(np.uint64)
+        return self._words
+
+    def read_var_int_array(self, widths) -> np.ndarray:
+        """Read consecutive integers of per-item bit widths (<= 57): each
+        value is the window of two packed words at its offset, shifted
+        down to its width."""
+        widths = np.asarray(widths, np.int64)
+        if widths.size == 0:
+            return np.zeros(0, np.uint64)
+        offs = self.pos + np.concatenate([[0], np.cumsum(widths)[:-1]])
+        total = int(widths.sum())
+        if self.pos + total > self.total:
+            raise EOFError("bulk read past end of stream")
+        words = self._packed_words()
+        wi = offs >> 6
+        sh = (offs & 63).astype(np.uint64)
+        hi = words[wi] << sh
+        lo_shift = (np.uint64(64) - sh) & np.uint64(63)
+        lo = np.where(sh == 0, np.uint64(0), words[wi + 1] >> lo_shift)
+        vals = (hi | lo) >> (np.uint64(64) - widths.astype(np.uint64))
+        vals = np.where(widths == 0, np.uint64(0), vals)
+        self.pos += total
+        return vals
 
     def read_int_array(self, bits: int, count: int) -> np.ndarray:
         """Read ``count`` consecutive fixed-width integers (bits <= 64)."""
@@ -385,5 +429,30 @@ class BitReader:
         out = (chunk.astype(np.uint64) * weights).sum(
             axis=1, dtype=np.uint64
         )
+        self.pos = end
+        return out
+
+    def read_unary_array(self, count: int) -> np.ndarray:
+        """Read ``count`` consecutive unary values."""
+        if count == 0:
+            return np.zeros(0, np.int64)
+        if self._ones is None:
+            self._ones = np.flatnonzero(self._bits)
+        i = np.searchsorted(self._ones, self.pos)
+        if i + count > self._ones.size:
+            raise EOFError("unary bulk read past end of stream")
+        ones = self._ones[i : i + count].astype(np.int64)
+        out = np.empty(count, np.int64)
+        out[0] = ones[0] - self.pos
+        out[1:] = np.diff(ones) - 1
+        self.pos = int(ones[-1]) + 1
+        return out
+
+    def read_bit_array(self, count: int) -> np.ndarray:
+        """Read ``count`` consecutive bits as a u8 array."""
+        end = self.pos + count
+        if end > self.total:
+            raise EOFError("bit bulk read past end of stream")
+        out = self._bits[self.pos : end].copy()
         self.pos = end
         return out

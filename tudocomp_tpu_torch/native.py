@@ -1,18 +1,26 @@
-"""Host TBC2 parse and decode, the host Huffman decode, the host suffix
-array, the host BWT decode, the host LZ77 (factorizer, PLCP,
+"""Host TBC2 parse and decode, the host Huffman decode and count, the
+host suffix array, the host BWT decode, the host LZ77 (factorizer, PLCP,
 factor-stream decode, VLC literal tail), the host lcpcomp (arrays, heap
-and bulldozer factorizers, compact decode) and the host SLE coder.
+and bulldozer factorizers, compact decode), the host SLE coder, the host
+ESP (round loop, SLP derivation and dependency sort, monotone
+decomposition), MTF, RLE decode and the arithmetic coder.
 
 Bindings of ``csrc/host/tbc2.cpp``, ``csrc/host/suffix.cpp``,
-``csrc/host/lzss.cpp``, ``csrc/host/lcpcomp.cpp`` and
-``csrc/host/sle.cpp`` (built by ``_build.build_host``); counterparts of
-``tudocomp_tpu/native.py``'s ``tbc2_parse``, ``tbc2_decode``,
-``huffman_decode``, ``suffix_array`` (its SA-IS), ``bwt_decode``,
-``lzss_lcp_factorize``, ``plcp``, ``lzss_decode_stream``,
-``vlc_literals``, ``lcpcomp_factorize``, ``lcpcomp_compact_decode``,
-``lcpcomp_bulldozer``, ``sle_rank``, ``sle_run_tokens``, ``sle_decode``,
-``factor_stream_sle_encode`` and ``lzss_decode_stream_sle``. A failed
-build raises: there is no Python fallback.
+``csrc/host/lzss.cpp``, ``csrc/host/lcpcomp.cpp``, ``csrc/host/sle.cpp``,
+``csrc/host/esp.cpp`` and ``csrc/host/literal.cpp`` (built by
+``_build.build_host``); counterparts of ``tudocomp_tpu/native.py``'s
+``tbc2_parse``, ``tbc2_decode``, ``huffman_decode``, ``huffman_count``,
+``suffix_array`` (its SA-IS), ``bwt_decode``, ``lzss_lcp_factorize``,
+``plcp``, ``lzss_decode_stream``, ``vlc_literals``,
+``lcpcomp_factorize``, ``lcpcomp_compact_decode``, ``lcpcomp_bulldozer``,
+``sle_rank``, ``sle_run_tokens``, ``sle_decode``,
+``factor_stream_sle_encode``, ``lzss_decode_stream_sle``,
+``esp_rounds``, ``slp_derive``, ``slp_dep_sort``, ``monotone_decompose``,
+``mtf_encode``, ``mtf_decode``, ``mtf_stream``, ``rle_decode``,
+``rle_decode_stream``, ``arith_encode`` and ``arith_decode``. A failed
+build raises: there is no Python fallback. ``esp_rounds`` returns None
+where the JAX wrapper does (no input, ``n >= 2**31``, a full rule
+buffer), which sends ``esp_rounds`` to its Python loop.
 """
 
 from __future__ import annotations
@@ -402,3 +410,177 @@ def lzss_decode_stream_sle(payload, nbits, start_bit, n, flen_min,
         return out[:got].tobytes()
     m = nfac.value
     return out[:got], fpos[:m], fsrc[:m], flen[:m]
+
+
+def huffman_count(payload: np.ndarray, nbits: int, lut_len: np.ndarray,
+                  k: int) -> int:
+    """The count of symbols decodable from the first ``nbits`` bits of
+    an MSB-first payload with a full ``k``-bit length LUT."""
+    payload = np.ascontiguousarray(payload, np.uint8)
+    lut_len = np.ascontiguousarray(lut_len, np.uint8)
+    got = _build.host_lib().tdc_huffman_count(_ptr(payload), nbits,
+                                              _ptr(lut_len), k)
+    if got < 0:
+        raise ValueError("malformed huffman stream")
+    return int(got)
+
+
+def esp_rounds(data: bytes):
+    """The whole ESP grammar (bit-identical to ``esp_rounds``' Python
+    loop): (rules int64[R, 2], root), or None for no input, for
+    ``n >= 2**31`` and when the rule buffer fills."""
+    n = len(data)
+    if n == 0 or n >= (1 << 31):
+        return None
+    buf = np.frombuffer(data, np.uint8)
+    cap = n + 16
+    rules_out = np.empty(2 * cap, np.int32)
+    root = ctypes.c_int64(0)
+    got = _build.host_lib().tdc_esp_rounds(
+        _ptr(buf), n, _ptr(rules_out), cap, ctypes.addressof(root))
+    if got < 0:
+        return None
+    rules = rules_out[: 2 * got].astype(np.int64).reshape(-1, 2)
+    return rules, int(root.value)
+
+
+def slp_derive(pairs: np.ndarray, root: int) -> bytes:
+    """Expand a binary SLP (terminals below 256) from ``root``."""
+    pairs = np.ascontiguousarray(pairs, np.int64).reshape(-1)
+    cap = 1 << 16
+    while True:
+        out = np.empty(cap, np.uint8)
+        got = _build.host_lib().tdc_slp_derive(
+            _ptr(pairs), pairs.size // 2, root, _ptr(out), cap)
+        if got == -2:
+            raise ValueError("invalid SLP rule reference")
+        if got >= 0:
+            return out[:got].tobytes()
+        cap *= 4
+
+
+def slp_dep_sort(rules: np.ndarray, root: int):
+    """Dependency sort (the permutation of ``slp_dep_sort``'s heap):
+    (sorted rules, new root)."""
+    rules = np.ascontiguousarray(rules, np.int64)
+    n = rules.shape[0]
+    out = np.empty((max(n, 1), 2), np.int64)
+    new_root = ctypes.c_int64(0)
+    got = _build.host_lib().tdc_slp_dep_sort(
+        _ptr(rules), n, root, _ptr(out), ctypes.addressof(new_root))
+    if got < 0:
+        raise ValueError("SLP dependency cycle")
+    return out[:n], int(new_root.value)
+
+
+def monotone_decompose(sis: np.ndarray):
+    """Rounds of the longest monotone subsequence of a permutation:
+    (Dpi int64, b u8 directions)."""
+    sis = np.ascontiguousarray(sis, np.int64)
+    n = sis.size
+    dpi = np.empty(max(n, 1), np.int64)
+    b = np.empty(max(n, 1), np.uint8)
+    got = _build.host_lib().tdc_monotone_decompose(
+        _ptr(sis), n, _ptr(dpi), _ptr(b), max(n, 1))
+    if got < 0:
+        raise RuntimeError("decomposition overflow")
+    return dpi[:n], b[:got]
+
+
+def _mtf(fn_name: str, data: bytes) -> bytes:
+    inp = np.frombuffer(data, np.uint8)
+    out = np.empty(inp.size, np.uint8)
+    getattr(_build.host_lib(), fn_name)(_ptr(inp), _ptr(out), inp.size)
+    return out.tobytes()
+
+
+def mtf_encode(data: bytes) -> bytes:
+    return _mtf("tdc_mtf_encode", data)
+
+
+def mtf_decode(data: bytes) -> bytes:
+    return _mtf("tdc_mtf_decode", data)
+
+
+def mtf_stream(data: bytes, table: np.ndarray, decode: bool = False) -> bytes:
+    """One MTF chunk with the carried 256-entry table (u8, updated in
+    place)."""
+    if table.dtype != np.uint8 or table.size != 256 \
+            or not table.flags.c_contiguous:
+        raise ValueError("mtf_stream needs a contiguous u8[256] table")
+    inp = np.frombuffer(data, np.uint8)
+    out = np.empty(inp.size, np.uint8)
+    lib = _build.host_lib()
+    fn = lib.tdc_mtf_decode_s if decode else lib.tdc_mtf_encode_s
+    fn(_ptr(inp), _ptr(out), inp.size, _ptr(table))
+    return out.tobytes()
+
+
+def rle_decode(arr: np.ndarray, offset: int = 0) -> bytes:
+    """Decode a whole RLE stream (``compressors/rle.py``'s format)."""
+    inp = np.ascontiguousarray(arr, np.uint8)
+    cap = max(64, inp.size * 4)
+    while True:
+        out = np.empty(cap, np.uint8)
+        got = _build.host_lib().tdc_rle_decode(_ptr(inp), inp.size,
+                                               _ptr(out), cap, offset)
+        if got == -2:
+            raise ValueError("malformed RLE stream")
+        if got >= 0:
+            return out[:got].tobytes()
+        cap *= 4
+
+
+def rle_decode_stream(chunk: np.ndarray, offset: int, prev: int,
+                      final: bool):
+    """Decode one RLE chunk: (out bytes, consumed, prev'). The
+    unconsumed tail (a token cut by the chunk's end) is fed again with
+    the next chunk."""
+    inp = np.ascontiguousarray(chunk, np.uint8)
+    cap = max(4096, inp.size * 4)
+    while True:
+        out = np.empty(cap, np.uint8)
+        prev_io = ctypes.c_int64(prev)
+        consumed = ctypes.c_int64(0)
+        got = _build.host_lib().tdc_rle_decode_s(
+            _ptr(inp), inp.size, _ptr(out), cap, offset,
+            ctypes.addressof(prev_io), 1 if final else 0,
+            ctypes.addressof(consumed))
+        if got == -2:
+            raise ValueError("malformed RLE stream")
+        if got >= 0:
+            return out[:got].tobytes(), int(consumed.value), \
+                int(prev_io.value)
+        cap *= 4
+
+
+def arith_encode(data: np.ndarray, cum: np.ndarray, total: int):
+    """The arithmetic coder's 64-bit block codes of a literal stream,
+    the final lower and the terminator included."""
+    data = np.ascontiguousarray(data, np.uint8)
+    cum = np.ascontiguousarray(cum, np.uint64)
+    cap = max(16, data.size // 4 + 16)
+    while True:
+        out = np.empty(cap, np.uint64)
+        got = _build.host_lib().tdc_arith_encode(
+            _ptr(data), data.size, _ptr(cum), total, _ptr(out), cap)
+        if got >= 0:
+            return out[:got]
+        cap *= 4
+
+
+def arith_decode(payload: np.ndarray, nbits: int, start_bit: int,
+                 syms: np.ndarray, cums: np.ndarray, total: int,
+                 count: int) -> np.ndarray:
+    """Decode ``count`` literals from the arithmetic block stream;
+    raises ``ValueError`` on a malformed stream."""
+    payload = np.ascontiguousarray(payload, np.uint8)
+    syms = np.ascontiguousarray(syms, np.uint8)
+    cums = np.ascontiguousarray(cums, np.uint64)
+    out = np.empty(max(1, count), np.uint8)
+    got = _build.host_lib().tdc_arith_decode(
+        _ptr(payload), nbits, start_bit, _ptr(syms), _ptr(cums), syms.size,
+        total, count, _ptr(out))
+    if got == -2:
+        raise ValueError("malformed arithmetic stream")
+    return out[:count]
