@@ -118,9 +118,22 @@ It needs one CUDA device and exits non-zero without one. Phases:
    "esp(rounds=device)"`` and ``-a esp`` through ``cli.main``: the same
    payload, each ``-d`` back to the input, wall times; (d) at 16 MiB ``-a
    "bwt(device=true):rle:mtf:encode(coder=arithmetic)"`` against ``-a
-   "bwt:rle:mtf:encode(coder=arithmetic)"`` the same way.
+   "bwt:rle:mtf:encode(coder=arithmetic)"`` the same way;
+15. the host families (sliding-window ``lzss``, ``lz78``, ``lzw``,
+   ``repair``, ``lz78u``, ``lfs_comp``, ``lfs2``, ``lfs2bst``; host code
+   with no kernel, ``csrc/host/``) through ``cli.main`` on
+   ``bench.make_corpus``, file to file, each ``-d`` back to the input and
+   each file equal to ``cli.compress``'s buffered container: (a) the
+   one-pass streaming branch at 16 MiB: ``lzss``, ``lz78(coder=bit)``,
+   ``lzw(coder=bit)``; (b) at 4 MiB ``repair(coder=bit)`` and
+   ``lz78u(coder=bit)``; (c) at 256 KiB ``lfs_comp``, ``lfs2`` and
+   ``lfs2bst`` (``HOST_CLI`` says why these sizes); (d) the host library
+   built on this machine gives the JAX package's bytes: each family's
+   container of ``make_corpus(64 KiB)`` hashes to the SHA-256 pinned in
+   ``HOST_DIGESTS`` (computed from the JAX package;
+   ``tests/test_torch_registry.py`` holds the pins against it).
 
-Every time of phases 8-14 is printed with the card's name and power
+Every time of phases 8-15 is printed with the card's name and power
 limit, and so is the whole run's wall time.
 
 Each kernel's line carries its bound: the bytes it must move (inputs
@@ -1617,6 +1630,79 @@ def esp_phase(dev, card: str) -> None:
                   + f"; the same {len(payloads[0])}-byte payload, and "
                   f"each -d restores the input")
 
+#: phase 15 (a)-(c): algorithm and input size (bytes) through cli.main.
+#: The sizes follow the JAX package's host speed on these families (a
+#: CPU measures lfs_comp and lfs2 at 10-20 s a MiB, the others at
+#: 0.1-0.3 s), so that the phase stays under a minute; (a) takes the
+#: CLI's one-pass streaming branch, (b) and (c) its buffered path
+HOST_CLI = (("lzss", 16 * MIB), ("lz78(coder=bit)", 16 * MIB),
+            ("lzw(coder=bit)", 16 * MIB), ("repair(coder=bit)", 4 * MIB),
+            ("lz78u(coder=bit)", 4 * MIB), ("lfs_comp", 256 << 10),
+            ("lfs2", 256 << 10), ("lfs2bst", 256 << 10))
+
+#: phase 15 (d): SHA-256 of each family's container (header included) of
+#: make_corpus(HOST_DIGEST_BYTES), computed from the JAX package
+HOST_DIGEST_BYTES = 64 << 10
+HOST_DIGESTS = {
+    "lzss":
+        "e3e1823e14b1caa79e77678c17d5922f0b7b9bc6fd2490fa13b34fdb246cc4a5",
+    "lz78(coder=bit)":
+        "86486fec9706eabf00570efaa3265ac1f2e9073f37b1531397a7ea046f4aecfd",
+    "lzw(coder=bit)":
+        "4f1f0c936867005e5b7e0cfe0c7a5ca30fab7b94d04de83503f0ca5675d45dcd",
+    "repair(coder=bit)":
+        "cdd8dccaef9aca84c3431bda00b491d4d23dc9236e97299ac66e91c7c332d807",
+    "lz78u(coder=bit)":
+        "cdd394a54f6fb7e64ca4119bfafd9e5bec11bdf7edac3d6c7317e2194e06fee2",
+    "lfs_comp":
+        "3b8b11649f112d37dc67c7ba031df5825ecd680f3b365d8c56433a8f4a05d581",
+    "lfs2":
+        "48ca1f1088516399b6469b1fbde9bc5a4f74dacea37c1ea96a3b77c1b731e276",
+    "lfs2bst":
+        "b402dcb978f2bde9c4b2ad62fc3b0f039eb918bc090b833a43430d222d3a4d80",
+}
+
+
+def host_phase(card: str) -> float:
+    """Phase 15: the host families through ``cli.main``, file to file,
+    and their containers' digests. Returns the phase's wall time (s)."""
+    import hashlib
+    import os
+    import tempfile
+
+    from bench import make_corpus
+    from tudocomp_tpu_torch import cli
+
+    t0 = time.perf_counter()
+    data = make_corpus(HOST_DIGEST_BYTES).tobytes()
+    for algo, want in HOST_DIGESTS.items():
+        got = hashlib.sha256(cli.compress(algo, data)).hexdigest()
+        if got != want:
+            raise AssertionError(f"{algo}: container digest {got}, the "
+                                 f"JAX package's {want}")
+    print(f"  (d) {len(HOST_DIGESTS)} containers of {len(data)} bytes "
+          f"hash to the JAX package's digests")
+    with tempfile.TemporaryDirectory() as tmp:
+        for algo, n in HOST_CLI:
+            raw = make_corpus(n).tobytes()
+            src = os.path.join(tmp, "in.bin")
+            with open(src, "wb") as f:
+                f.write(raw)
+            out = os.path.join(tmp, "out.tdc")
+            wall = _cli([src, "-a", algo, "-f", "-o", out])
+            dec = out + ".dec"
+            wall_d = _cli([out, "-d", "-f", "-o", dec])
+            _same_file(dec, raw, f"-d of {algo}")
+            with open(out, "rb") as f:
+                size = len(f.read())
+            _same_file(out, cli.compress(algo, raw), f"the file of {algo}")
+            print(f"  {algo} on {n} bytes ({card}): -a {wall:.3f} s "
+                  f"({n / wall / MIB:.2f} MiB/s), -d {wall_d:.3f} s, "
+                  f"{size} bytes, the buffered container, -d restores "
+                  f"the input")
+    return time.perf_counter() - t0
+
+
 def require_launched(counts: dict, names) -> dict:
     """The path's launch counts; raises if one of its kernels never ran."""
     got = {k: counts[k] for k in names}
@@ -1639,6 +1725,14 @@ PORT_MODULES = (
     "tudocomp_tpu_torch.coders.arithmetic",
     "tudocomp_tpu_torch.compressors.rle", "tudocomp_tpu_torch.compressors.mtf",
     "tudocomp_tpu_torch.compressors.literal",
+    "tudocomp_tpu_torch.compressors.lzss",
+    "tudocomp_tpu_torch.compressors.lz78",
+    "tudocomp_tpu_torch.compressors.lzw",
+    "tudocomp_tpu_torch.compressors.lz78_trie",
+    "tudocomp_tpu_torch.compressors.repair",
+    "tudocomp_tpu_torch.compressors.lz78u",
+    "tudocomp_tpu_torch.compressors.lfs", "tudocomp_tpu_torch.ds.suffix_tree",
+    "tudocomp_tpu_torch.utils.log",
 )
 
 
@@ -1705,6 +1799,8 @@ def main() -> int:
     lcpcomp_phase(dev, card)
     print("== phase 14: device ESP at 1 MiB and 64 MiB, the CLI at 16 MiB")
     esp_phase(dev, card)
+    print("== phase 15: the host families through the CLI")
+    print(f"  phase 15: {host_phase(card):.1f} s ({card})")
     sources = dict(SOURCES)
     sources.update({c["name"]: (c["source"], c["replaces"]) for c in probes})
     # the modules of every phase ran in this process; none of them (nor

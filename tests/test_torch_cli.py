@@ -231,8 +231,10 @@ def test_list_shows_the_port_registry(capsys):
     for name in ("tbc2", "bwt", "chain", "blocks", "lzss_lcp", "bit",
                  "huff", "fib", "thue_morse"):
         assert f"  {name}" in out
-    # the sliding-window lzss is not ported yet
-    assert "  lzss(" not in out
+    # every family is ported: the listing equals the JAX CLI's line for
+    # line
+    assert jax_cli.main(["-l"]) == 0
+    assert out.splitlines() == capsys.readouterr().out.splitlines()
 
 
 def test_stats_json_has_the_jax_keys(tmp_path, capsys):

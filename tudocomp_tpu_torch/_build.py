@@ -7,8 +7,11 @@ Two shared libraries with a plain C interface, loaded with ``ctypes``:
   (factorizer, PLCP, factor-stream decode), lcpcomp (factorizers,
   compact decode), SLE coder, ESP (round loop, SLP derivation and
   dependency sort, monotone decomposition) and the literal-stream
-  kernels (MTF, chunked RLE decode, Huffman count, arithmetic coder)
-  (``csrc/host/*.cpp``), compiled by the host C++ compiler.
+  kernels (MTF, chunked RLE decode, Huffman count, arithmetic coder),
+  the sliding-window LZSS, LZ78 and LZW (parses, decoders, one-pass
+  stream handles), Re-Pair, LZ78U, the suffix tree and LFS
+  (``csrc/host/*.cpp`` with their shared ``*.hpp``), compiled by the
+  host C++ compiler.
 
 Each is built at first use, from the package's own sources, into
 ``csrc/build/`` (git-ignored), and is keyed by a hash of its sources and
@@ -165,6 +168,74 @@ _HOST_SIGNATURES = {
     "tdc_arith_encode": [_P, _L, _P, ctypes.c_uint64, _P, _L],
     # payload, nbits, start_bit, syms, cums, sigma, total, count, out
     "tdc_arith_decode": [_P, _L, _L, _P, _P, _L, ctypes.c_uint64, _L, _P],
+    # (``csrc/host/lz78.cpp``)
+    # payload, nbits, start_bit, code_kind, dict_max, out, out_cap
+    "tdc_lz78_stream_decode": [_P, _L, _L, _I, _L, _P, _L],
+    "tdc_lzw_stream_decode": [_P, _L, _L, _I, _L, _P, _L],
+    # handle, in, n, final, code_kind, out, cap_bits
+    "tdc_lz78s_feed": [_P, _P, _L, _I, _I, _P, _L],
+    "tdc_lz78s_free": [_P],
+    # handle, in, n, final
+    "tdc_lz78ds_feed": [_P, _P, _L, _I],
+    # handle, out, cap
+    "tdc_lz78ds_take": [_P, _P, _L],
+    "tdc_lz78ds_free": [_P],
+    # (``csrc/host/lzss_window.cpp``) payload, nbits, start_bit, window, code_kind, out, out_cap
+    "tdc_lzss_window_decode": [_P, _L, _L, _L, _I, _P, _L],
+    # buf, n, start, abs_base, final, window, threshold, code_kind, out,
+    # cap_bits, next_i_out
+    "tdc_lzss_window_encode_s": [_P, _L, _L, _L, _I, _L, _L, _I, _P, _L,
+                                 _P],
+    "tdc_lzssds_feed": [_P, _P, _L, _I],
+    "tdc_lzssds_take": [_P, _P, _L],
+    "tdc_lzssds_free": [_P],
+    # (``csrc/host/repair.cpp``) text, n, max_rules, rules_out (i32
+    # pairs), rules_cap, start_out (i32), start_len_out
+    "tdc_repair": [_P, _L, _L, _P, _L, _P, _P],
+    # payload, nbits, start_bit, lut_sym, lut_len, k, code_kind, out,
+    # out_cap
+    "tdc_repair_decode": [_P, _L, _L, _P, _P, _I, _I, _P, _L],
+    # (``csrc/host/lfs.cpp``) sa, lcp, n, parent, sdepth, is_leaf,
+    # suffix, leaf_of_rank (i64 / i32)
+    "tdc_suffix_tree": [_P, _P, _L, _P, _P, _P, _P, _P],
+    "tdc_suffix_tree32": [_P, _P, _L, _P, _P, _P, _P, _P],
+    # sa, lcp (i64), m, n, min_lrf, fl_nts, fl_off, sl_nts (u32),
+    # sl_dead, nts_start, nts_len (i64), cap
+    "tdc_lfs2_parse": [_P, _P, _L, _L, _L, _P, _P, _P, _P, _P, _P, _L],
+    "tdc_lfs_parse": [_P, _P, _L, _L, _L, _P, _P, _P, _P, _P, _P, _L],
+    # payload, nbits, start_bit, lut_sym, lut_len, k, w_id, dict_lens
+    # (i64), n_lens, out, out_cap
+    "tdc_lfs_start_decode": [_P, _L, _L, _P, _P, _I, _I, _P, _L, _P, _L],
+    "tdc_lfs2_decode": [_P, _L, _L, _P, _P, _I, _I, _P, _L, _P, _L],
+    # parent, sdepth, is_leaf, suffix, nn, n, min_lrf, d_start, d_len,
+    # d_cap, o_pos, o_rule, o_len, o_cap, nd_out (i64 arrays)
+    "tdc_lfs_simst": [_P, _P, _P, _P, _L, _L, _L, _P, _P, _L, _P, _P, _P,
+                      _L, _P],
+    # parent, sdepth, suffix, nn, n, min_lrf, d_start, d_len, d_cap,
+    # o_pos, o_rule, o_len, o_cap, nd_out (i64 arrays)
+    "tdc_lfs_bst": [_P, _P, _P, _L, _L, _L, _P, _P, _L, _P, _P, _P, _L,
+                    _P],
+    # (``csrc/host/lz78u.cpp``) parent, sdepth, is_leaf, leaf_of_rank,
+    # isa, text, n, m, threshold, kind_out, value_out, aux_out, cap
+    # (i64 / i32)
+    "tdc_lz78u_parse": [_P, _P, _P, _P, _P, _P, _L, _L, _L, _P, _P, _P,
+                        _L],
+    "tdc_lz78u_parse32": [_P, _P, _P, _P, _P, _P, _L, _L, _L, _P, _P, _P,
+                          _L],
+    # payload, nbits, start_bit, lut_sym, lut_len, k, ref_kind,
+    # str_kind, out, out_cap
+    "tdc_lz78u_decode": [_P, _L, _L, _P, _P, _I, _I, _I, _P, _L],
+}
+
+#: host constructors of the one-pass stream handles: name -> argtypes;
+#: each returns the handle (``void*``, NULL on failure)
+_HOST_HANDLE_SIGNATURES = {
+    # lzw, dict_limit
+    "tdc_lz78s_new": [_I, _L],
+    # lzw, dict_max, code_kind
+    "tdc_lz78ds_new": [_I, _L, _I],
+    # window, code_kind
+    "tdc_lzssds_new": [_L, _I],
 }
 
 _lock = threading.Lock()
@@ -181,6 +252,10 @@ def _sources() -> list[str]:
 
 def _host_sources() -> list[str]:
     return sorted(glob.glob(os.path.join(_CSRC, "host", "*.cpp")))
+
+
+def _host_headers() -> list[str]:
+    return sorted(glob.glob(os.path.join(_CSRC, "host", "*.hpp")))
 
 
 def _nvcc() -> str:
@@ -202,13 +277,14 @@ def _cxx() -> str:
 
 
 def _compile(name: str, compiler: str, flags, sources: list[str],
-             so: str) -> float:
+             so: str, headers: list[str] = ()) -> float:
     """Compile ``sources`` into ``so`` unless the stamped library is
-    current; return the seconds spent compiling. Each source compiles in
-    its own process, all started together, then one link. Raises
+    current (``headers`` are hashed into the stamp, not compiled);
+    return the seconds spent compiling. Each source compiles in its own
+    process, all started together, then one link. Raises
     ``RuntimeError`` with the compiler's output on failure."""
     h = hashlib.sha256(" ".join(flags).encode())
-    for path in sources:
+    for path in [*sources, *headers]:
         h.update(os.path.basename(path).encode())
         with open(path, "rb") as f:
             h.update(f.read())
@@ -271,7 +347,8 @@ def build() -> float:
 
 def build_host() -> float:
     """Compile the host library (``csrc/host``) if its sources changed."""
-    return _compile("g++", _cxx(), HOST_FLAGS, _host_sources(), _HOST_SO)
+    return _compile("g++", _cxx(), HOST_FLAGS, _host_sources(), _HOST_SO,
+                    _host_headers())
 
 
 def _bind(so: str, signatures: dict, restype) -> ctypes.CDLL:
@@ -299,7 +376,12 @@ def host_lib() -> ctypes.CDLL:
     with _lock:
         if _host_lib is None:
             build_host()
-            _host_lib = _bind(_HOST_SO, _HOST_SIGNATURES, ctypes.c_int64)
+            lib = _bind(_HOST_SO, _HOST_SIGNATURES, ctypes.c_int64)
+            for name, argtypes in _HOST_HANDLE_SIGNATURES.items():
+                fn = getattr(lib, name)
+                fn.argtypes = argtypes
+                fn.restype = ctypes.c_void_p
+            _host_lib = lib
         return _host_lib
 
 

@@ -15,6 +15,8 @@ Reference counterpart: ``src/tudocomp_driver/tudocomp_driver.cpp`` +
   -l/--list             list registered algorithms
   --stats[=TITLE]       print a StatPhase JSON tree to stderr
   --usestdin/--usestdout  stream via stdio
+  --loglevel/--logdir/--logverbosity  logging (utils/log.py; also the
+                        TDC_LOGLEVEL/TDC_LOGDIR/TDC_LOGVERBOSITY variables)
   --device {cuda,cpu}   torch device of the device stages (default cuda;
                         raises where CUDA is absent, nothing falls back)
 
@@ -24,12 +26,11 @@ declared input restrictions (escaping + null sentinel) outside the
 compressor, mirroring ``tudocomp_driver.cpp:268-270``.
 
 The port's counterpart of ``tudocomp_tpu/cli.py``: the same flags and
-headers, over the port's registry (``noop``, ``encode``, ``rle``,
-``mtf``, ``tbc2``, ``bwt``, ``chain``, ``blocks``, ``lzss_lcp``,
-``lcpcomp``, ``esp`` and the generators so far), so that each package's
-CLI decodes the other's output. A file compressed by an algorithm that
-streams (``noop``, ``rle``, ``mtf``) goes one pass in constant memory,
-with the buffered path's bytes. The torch device is a run-time argument
+headers, over the port's registry (every family of the JAX package,
+so ``-l`` prints the same listing), so that each package's CLI decodes
+the other's output. A file compressed by an algorithm that streams
+(``noop``, ``rle``, ``mtf``, ``lzss``, ``lz78``, ``lzw``) goes one pass
+in constant memory, with the buffered path's bytes. The torch device is a run-time argument
 (``device``, ``--device``), never part of the algorithm string.
 """
 
@@ -289,6 +290,12 @@ def _parse_args(argv):
     p.add_argument("--stats", nargs="?", const="STATS", default=None)
     p.add_argument("--usestdin", action="store_true")
     p.add_argument("--usestdout", action="store_true")
+    p.add_argument("--loglevel", default=None,
+                   help="logging level (debug/info/warning/error)")
+    p.add_argument("--logdir", default=None,
+                   help="write a per-run log file into this directory")
+    p.add_argument("--logverbosity", type=int, default=None,
+                   help="VLOG verbosity gate (glog-style)")
     p.add_argument("--threads", type=int, default=1,
                    help="with --blocks: compress/decompress this many "
                         "blocks concurrently (host threads)")
@@ -312,6 +319,10 @@ def _parse_args(argv):
 
 
 def _run(p, args) -> int:
+    from tudocomp_tpu_torch.utils.log import configure as _log_configure
+
+    _log_configure(args.loglevel, args.logdir, args.logverbosity)
+
     if args.list:
         print(REGISTRY.doc_listing())
         return 0

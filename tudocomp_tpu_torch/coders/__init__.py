@@ -36,14 +36,27 @@ LCPCOMP_CODER_NAMES = ("ascii", "huff", "sle")
 ALL_CODERS = NON_CONSUMING_CODERS + CONSUMING_ENTROPY_CODERS
 
 
+#: the coders with a pure-VLC field format and their int-code kinds in
+#: the host library (``BitRd.read_code``, ``TdcBitWr.put_code``)
+_CODE_KIND_CODERS = ((BitCoder, 0), (EliasGammaCoder, 1),
+                     (EliasDeltaCoder, 2), (TernaryCoder, 3), (ASCIICoder, 4))
+
+#: coder name -> int-code kind, for the host stream coders, which hold no
+#: decoder instance
+CODE_KINDS = {cls.meta().name: kind for cls, kind in _CODE_KIND_CODERS}
+
+
 def native_code_kind(decoder):
     """Map a decoder instance to the host library's int-code kind
     (``BitRd.read_code``): 0 bit, 1 gamma, 2 delta, 3 ternary,
     4 ascii; None for coders without a pure-VLC field format."""
-    for cls, kind in (
-        (BitCoder, 0), (EliasGammaCoder, 1), (EliasDeltaCoder, 2),
-        (TernaryCoder, 3), (ASCIICoder, 4),
-    ):
+    for cls, kind in _CODE_KIND_CODERS:
         if isinstance(decoder, cls.Decoder):
             return kind
     return None
+
+
+def option_code_kind(env, option: str = "coder") -> int:
+    """The int-code kind of the coder that ``env``'s ``option`` names;
+    the families that call it accept only ``UNIVERSAL_CODER_NAMES``."""
+    return CODE_KINDS[env.env_for_option(option).cls.meta().name]

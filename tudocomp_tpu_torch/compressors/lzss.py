@@ -1,8 +1,7 @@
-"""``lzss_lcp`` and the shared factor-stream format.
+"""LZSS/LZ77 compressors and the shared factor-stream format.
 
-The port's counterpart of the ``lzss_lcp`` half of
-``tudocomp_tpu/compressors/lzss.py``, with the same options, headers and
-bytes:
+The port's counterpart of ``tudocomp_tpu/compressors/lzss.py``, with the
+same options, headers and bytes:
 
 1. the factor-stream wire format (``lzss/LZSSCoding.hpp:19-140``): header
    ``n, flen_min, flen_max, fdist_max`` then, per factor, a gap flag bit
@@ -14,16 +13,20 @@ bytes:
    matcher of ``ops/lzss.py`` on the Env's torch device; decoded by the
    host library's back-reference walk (``dec=host``) or by pointer
    doubling on the device (``dec=device``).
+3. ``lzss`` — sliding-window greedy factorization
+   (``LZSSSlidingWindowCompressor.hpp:39-143``), encoded and decoded on
+   the host, in one pass over a file too.
 
 The host parts run the port's host library (``csrc/host/lzss.cpp``,
-``csrc/host/sle.cpp``), which raises when it cannot be built: there is
-no Python token walk behind it. The factor stream also carries
-``lcpcomp`` (``compressors/lcpcomp.py``), whose coders include the
-consuming ``sle``. The sliding-window ``lzss`` is not ported yet.
+``csrc/host/sle.cpp``, ``csrc/host/lzss_window.cpp``), which raises when
+it cannot be built: there is no Python token walk behind it. The factor
+stream also carries ``lcpcomp`` (``compressors/lcpcomp.py``), whose
+coders include the consuming ``sle``.
 """
 
 from __future__ import annotations
 
+import io
 from dataclasses import dataclass
 
 import numpy as np
@@ -31,7 +34,9 @@ import numpy as np
 from tudocomp_tpu_torch import native
 from tudocomp_tpu_torch.coders import (
     NON_CONSUMING_CODER_NAMES,
+    UNIVERSAL_CODER_NAMES,
     native_code_kind,
+    option_code_kind,
 )
 from tudocomp_tpu_torch.coders.base import Literals
 from tudocomp_tpu_torch.coders.huffman import HuffmanCoder
@@ -40,7 +45,7 @@ from tudocomp_tpu_torch.coders.sle import K as SLE_K, SLECoder
 from tudocomp_tpu_torch.compressors.base import Compressor
 from tudocomp_tpu_torch.device import resolve_device
 from tudocomp_tpu_torch.ds.suffix import TextDS
-from tudocomp_tpu_torch.io.bitio import BitReader, BitWriter
+from tudocomp_tpu_torch.io.bitio import BitReader, BitWriter, StreamBitSink
 from tudocomp_tpu_torch.meta import Meta
 from tudocomp_tpu_torch.ops.lzss import (
     factorize_device, resolve_factors_device,
@@ -518,3 +523,119 @@ class LZSSLCPCompressor(Compressor):
             return decode_factor_text_device(
                 decoder, resolve_device(self.env.torch_device))
         return decode_factor_text(decoder)
+
+
+# --- sliding window ---------------------------------------------------------
+
+
+class LZSSSlidingWindowCompressor(Compressor):
+    """Sliding-window greedy factorization
+    (``LZSSSlidingWindowCompressor.hpp:39-143``): window w (default 16),
+    threshold t (default 3); factors are ``(bit 1, delta in Range(pos),
+    len in Range(w))``, literals ``(bit 0, literal)``; bit widths grow
+    with the absolute position (adaptive ranges). At position i the
+    candidates start in [max(0, i-w), i), the longest match wins, ties
+    to the leftmost candidate, and matches may overlap i.
+
+    Documented divergence: match lengths are capped at ``window``. The
+    reference lets matches inside its initial 2w buffer exceed the
+    window yet encodes the length in ``Range(window)``
+    (``LZSSSlidingWindowCompressor.hpp:74-88``), silently wrapping the
+    field and corrupting its own stream for small windows; the cap
+    keeps every emitted factor representable.
+
+    Encoded and decoded by the host library
+    (``csrc/host/lzss_window.cpp``), the buffered encode through the
+    one-pass stream encoder over the bytes in memory."""
+
+    @classmethod
+    def meta(cls):
+        m = Meta(
+            "compressor",
+            "lzss",
+            "Lempel-Ziv-Storer-Szymanski (Sliding Window)",
+        )
+        m.option_submeta(
+            "coder", "coder", default="bit",
+            accepts=UNIVERSAL_CODER_NAMES,
+        )
+        m.option_dynamic("window", 16)
+        m.option_dynamic("threshold", 3)
+        return m
+
+    def compress(self, data: bytes) -> bytes:
+        fout = io.BytesIO()
+        self.compress_stream(io.BytesIO(data), fout)
+        return fout.getvalue()
+
+    def decompress(self, data: bytes) -> bytes:
+        rd = BitReader(data)
+        return native.lzss_window_decode(
+            np.packbits(rd._bits), rd.total, rd.pos,
+            self.env.option("window").as_int(), option_code_kind(self.env),
+        )
+
+    supports_streaming = True
+
+    def compress_stream(self, fin, fout) -> None:
+        """One-pass O(window)-memory streaming encode (reference
+        ``as_stream()`` parity: the reference factorizer itself only ever
+        holds a 2*window buffer, ``LZSSSlidingWindowCompressor.hpp:51-56``).
+        Chunks are factorized with full look-ahead (positions past
+        ``len - window`` defer to the next chunk), the adaptive delta
+        width uses absolute positions, and per-chunk bit runs splice
+        through ``StreamBitSink`` — the same bytes for every chunking.
+
+        A window below 1 has no candidates and a threshold below 1
+        admits the same matches as 1 (a match has at least one byte),
+        so both are raised to those values for the host encoder; the
+        container keeps the options as given."""
+        window = max(0, self.env.option("window").as_int())
+        threshold = max(1, self.env.option("threshold").as_int())
+        kind = option_code_kind(self.env)
+        sink = StreamBitSink(fout)
+        context = np.zeros(0, np.uint8)
+        abs_base = 0
+        start = 0
+        while True:
+            chunk = fin.read(STREAM_CHUNK)
+            final = not chunk
+            buf = np.concatenate(
+                [context, np.frombuffer(chunk, np.uint8)]
+            )
+            packed, nbits, next_i = native.lzss_window_encode_stream(
+                buf, start, abs_base, final, window, threshold, kind
+            )
+            sink.append_packed(packed, nbits)
+            if final:
+                break
+            keep_from = max(0, next_i - window)
+            context = buf[keep_from:]
+            abs_base += keep_from
+            start = next_i - keep_from
+        sink.close()
+
+    def decompress_stream(self, fin, fout) -> None:
+        """One-pass O(window)-memory streaming decode: back-copies reach
+        at most ``window`` bytes, so the host handle keeps just the
+        output tail + the undecoded bit tail across chunks (token
+        rollback at chunk edges; absolute-position delta widths).
+        Byte-identical to the buffered decode at every chunking."""
+        stream = native.LzssDecStream(self.env.option("window").as_int(),
+                                      option_code_kind(self.env))
+        try:
+            while True:
+                chunk = fin.read(STREAM_CHUNK)
+                final = not chunk
+                out = stream.feed(chunk, final)
+                if out:
+                    fout.write(out)
+                if final:
+                    break
+        finally:
+            stream.close()
+
+
+#: streaming chunk size for the sliding-window path (state kept across
+#: chunks: the last 2*window bytes + the partial output byte)
+STREAM_CHUNK = 1 << 22

@@ -4,12 +4,14 @@
 //
 // Copies of the JAX package's native runtime (native/tdc_native.cpp:
 // lzss_lcp_factorize_impl with tdc_lzss_lcp_factorize/32, tdc_plcp/32,
-// BitRd with tdc_lzss_decode, tdc_vlc_literals), so that the port's
-// lzss_lcp needs nothing of that package. Built with the host compiler
+// tdc_lzss_decode over bitrw.hpp's BitRd, tdc_vlc_literals), so that
+// the port's lzss_lcp needs nothing of that package. Built with the host compiler
 // by _build.py into csrc/build/ and bound with ctypes by native.py.
 // Every entry point returns int64, as the host library's others do.
 
 #include <cstdint>
+
+#include "bitrw.hpp"
 
 // ---- lzss_lcp factorization ------------------------------------------
 // Naive PSV/NSV factorization over SA/ISA/LCP (reference
@@ -116,94 +118,6 @@ int64_t tdc_plcp32(const uint8_t* text, const int32_t* phi, int64_t n,
 // mode 1: collect factors/literals only: out receives the literal bytes;
 //   fpos/fsrc/flen receive factors; *nfac_out gets the count; returns
 //   the literal count. Returns -1 on overflow, -2 on a malformed stream.
-
-struct BitRd {
-    const uint8_t* p;
-    int64_t nbits;
-    int64_t pos;
-    inline int64_t read(int w) {
-        if (w == 0) return 0;
-        int64_t v = 0;
-        for (int i = 0; i < w; i++) {
-            int64_t b = (pos < nbits)
-                ? ((p[pos >> 3] >> (7 - (pos & 7))) & 1) : 0;
-            v = (v << 1) | b;
-            pos++;
-        }
-        return v;
-    }
-    // variable-length integer codes (mirror io/bitio.py readers);
-    // every reader returns -1 on a truncated/overlong code
-    inline int64_t read_unary() {
-        int64_t z = 0;
-        while (pos < nbits &&
-               !((p[pos >> 3] >> (7 - (pos & 7))) & 1)) { z++; pos++; }
-        if (pos >= nbits) return -1;
-        pos++;  // the terminating 1
-        return z;
-    }
-    inline int64_t read_gamma() {
-        int64_t m = read_unary();
-        if (m < 0 || m > 62 || pos + m > nbits) return -1;
-        return read(int(m));
-    }
-    inline int64_t read_delta() {
-        int64_t m = read_gamma();
-        if (m < 0 || m > 62 || pos + m > nbits) return -1;
-        return read(int(m));
-    }
-    inline int64_t read_ternary() {
-        if (pos + 2 > nbits) return -1;
-        int64_t mod = read(2);
-        int64_t v = 0;
-        if (mod < 3) {
-            int64_t b3 = 1;
-            for (;;) {
-                v += mod * b3;
-                b3 *= 3;
-                if (pos + 2 > nbits) return -1;
-                mod = read(2);
-                if (mod == 3) break;
-                if (b3 > (int64_t(1) << 60)) return -1;
-            }
-            v += 1;
-        }
-        return v;
-    }
-    inline int64_t read_ascii_int() {
-        // decimal digits then one terminator byte (ASCIICoder)
-        int64_t v = 0;
-        bool any = false;
-        for (;;) {
-            if (pos + 8 > nbits) return any ? v : -1;
-            int64_t c = read(8);
-            if (c < '0' || c > '9') break;
-            any = true;
-            if (v > (int64_t(1) << 55)) return -1;
-            v = v * 10 + (c - '0');
-        }
-        return v;
-    }
-    // kind: 0 = fixed width w, 1 = gamma, 2 = delta, 3 = ternary,
-    // 4 = ascii decimal
-    inline int64_t read_code(int kind, int w) {
-        switch (kind) {
-            case 0: return read(w);
-            case 1: return read_gamma();
-            case 2: return read_delta();
-            case 3: return read_ternary();
-            default: return read_ascii_int();
-        }
-    }
-    // the coders' BitRange: 1 bit, except ascii's '0'/'1' byte
-    inline int64_t read_flag(int kind) {
-        if (kind == 4) {
-            if (pos + 8 > nbits) return -1;
-            return read(8) == '0' ? 0 : 1;
-        }
-        return read(1);
-    }
-};
 
 int64_t tdc_lzss_decode(const uint8_t* payload, int64_t nbits,
                         int64_t start_bit, int64_t n, int64_t flen_min,

@@ -3,8 +3,9 @@ token packer.
 
 Copy of the parts of ``tudocomp_tpu/io/bitio.py`` that the port calls
 (the TBC2 header, the Huffman table serialisation, the coders' integer
-codes: unary, ternary, Elias gamma and delta, and the bulk reads and
-writes of the SLP coders); semantics follow
+codes: unary, ternary, Elias gamma and delta, the bulk reads and
+writes of the SLP coders, and the one-pass streams' ``StreamBitSink``);
+semantics follow
 that package's ``io/spec.md``. The writer is token-buffered: every write
 appends ``(value, len)`` tokens (len <= 32) and the byte stream is
 produced in one vectorised pass at :meth:`BitWriter.getvalue`.
@@ -456,3 +457,49 @@ class BitReader:
         out = self._bits[self.pos : end].copy()
         self.pos = end
         return out
+
+
+class StreamBitSink:
+    """Incremental bit-stream writer: flushes whole bytes to a binary
+    file object as they fill, keeping only the (< 8 bit) partial tail in
+    memory — the O(1)-state complement of BitWriter for streaming
+    compressors. ``close()`` applies the final-byte convention
+    (io/spec.md; reference BitOStream destructor,
+    ``io/BitOStream.hpp:53-64``)."""
+
+    def __init__(self, fout):
+        self.fout = fout
+        self._tail = 0  # pending bits, MSB-aligned within _tail_n bits
+        self._tail_n = 0
+        self.total_bits = 0
+
+    def append_packed(self, packed: np.ndarray, nbits: int) -> None:
+        """Append ``nbits`` MSB-first bits from a packed byte array."""
+        if nbits <= 0:
+            return
+        self.total_bits += nbits
+        bits = np.unpackbits(
+            np.ascontiguousarray(packed[: (nbits + 7) // 8])
+        )[:nbits]
+        if self._tail_n:
+            head = np.zeros(self._tail_n, np.uint8)
+            for k in range(self._tail_n):
+                head[k] = (self._tail >> (self._tail_n - 1 - k)) & 1
+            bits = np.concatenate([head, bits])
+        n_full = bits.size // 8
+        if n_full:
+            self.fout.write(np.packbits(bits[: n_full * 8]).tobytes())
+        rest = bits[n_full * 8 :]
+        self._tail_n = rest.size
+        self._tail = 0
+        for b in rest.tolist():
+            self._tail = (self._tail << 1) | int(b)
+
+    def close(self) -> None:
+        k = self.total_bits % 8
+        if k == 0:
+            self.fout.write(b"\x00")
+        elif k <= 5:
+            self.fout.write(bytes([(self._tail << (8 - k)) | k]))
+        else:
+            self.fout.write(bytes([self._tail << (8 - k), k]))

@@ -3,24 +3,32 @@ host suffix array, the host BWT decode, the host LZ77 (factorizer, PLCP,
 factor-stream decode, VLC literal tail), the host lcpcomp (arrays, heap
 and bulldozer factorizers, compact decode), the host SLE coder, the host
 ESP (round loop, SLP derivation and dependency sort, monotone
-decomposition), MTF, RLE decode and the arithmetic coder.
+decomposition), MTF, RLE decode, the arithmetic coder, the
+sliding-window LZSS, LZ78 and LZW, Re-Pair, LZ78U, the suffix tree and
+LFS.
 
-Bindings of ``csrc/host/tbc2.cpp``, ``csrc/host/suffix.cpp``,
-``csrc/host/lzss.cpp``, ``csrc/host/lcpcomp.cpp``, ``csrc/host/sle.cpp``,
-``csrc/host/esp.cpp`` and ``csrc/host/literal.cpp`` (built by
-``_build.build_host``); counterparts of ``tudocomp_tpu/native.py``'s
-``tbc2_parse``, ``tbc2_decode``, ``huffman_decode``, ``huffman_count``,
-``suffix_array`` (its SA-IS), ``bwt_decode``, ``lzss_lcp_factorize``,
-``plcp``, ``lzss_decode_stream``, ``vlc_literals``,
-``lcpcomp_factorize``, ``lcpcomp_compact_decode``, ``lcpcomp_bulldozer``,
-``sle_rank``, ``sle_run_tokens``, ``sle_decode``,
-``factor_stream_sle_encode``, ``lzss_decode_stream_sle``,
-``esp_rounds``, ``slp_derive``, ``slp_dep_sort``, ``monotone_decompose``,
-``mtf_encode``, ``mtf_decode``, ``mtf_stream``, ``rle_decode``,
-``rle_decode_stream``, ``arith_encode`` and ``arith_decode``. A failed
-build raises: there is no Python fallback. ``esp_rounds`` returns None
-where the JAX wrapper does (no input, ``n >= 2**31``, a full rule
-buffer), which sends ``esp_rounds`` to its Python loop.
+Bindings of ``csrc/host/*.cpp`` (built by ``_build.build_host``);
+counterparts of ``tudocomp_tpu/native.py``'s ``tbc2_parse``,
+``tbc2_decode``, ``huffman_decode``, ``huffman_count``, ``suffix_array``
+(its SA-IS), ``bwt_decode``, ``lzss_lcp_factorize``, ``plcp``,
+``lzss_decode_stream``, ``vlc_literals``, ``lcpcomp_factorize``,
+``lcpcomp_compact_decode``, ``lcpcomp_bulldozer``, ``sle_rank``,
+``sle_run_tokens``, ``sle_decode``, ``factor_stream_sle_encode``,
+``lzss_decode_stream_sle``, ``esp_rounds``, ``slp_derive``,
+``slp_dep_sort``, ``monotone_decompose``, ``mtf_encode``,
+``mtf_decode``, ``mtf_stream``, ``rle_decode``, ``rle_decode_stream``,
+``arith_encode``, ``arith_decode``, ``lzss_window_decode``,
+``lzss_window_encode_stream``, ``LzssDecStream``,
+``lz78_stream_decode``, ``lzw_stream_decode``, ``Lz78Stream``,
+``Lz78DecStream``, ``repair``, ``repair_decode``, ``lz78u_parse``,
+``lz78u_decode``, ``suffix_tree``, ``lfs_parse``, ``lfs2_parse``,
+``lfs_simst``, ``lfs_bst``, ``lfs_start_decode`` and ``lfs2_decode``. A
+failed build raises: there is no Python fallback. A wrapper returns None
+only where the JAX wrapper does for a reason other than a missing
+library, which sends its caller down the same Python path:
+``esp_rounds`` (no input, ``n >= 2**31``, a full rule buffer),
+``repair`` (``n >= 2**31``, a rule overflow), ``lfs_simst`` and
+``lfs_bst`` (an occurrence overflow).
 """
 
 from __future__ import annotations
@@ -584,3 +592,423 @@ def arith_decode(payload: np.ndarray, nbits: int, start_bit: int,
     if got == -2:
         raise ValueError("malformed arithmetic stream")
     return out[:count]
+
+
+# ---- lz78 and lzw (csrc/host/lz78.cpp) ------------------------------------
+
+def _stream_decode(fn_name, payload, nbits, start_bit, code_kind,
+                   dict_max) -> bytes:
+    payload = np.ascontiguousarray(payload, np.uint8)
+    fn = getattr(_build.host_lib(), fn_name)
+    cap = max(64, nbits * 2 + 64)
+    while True:
+        out = np.empty(cap, np.uint8)
+        got = fn(_ptr(payload), nbits, start_bit, code_kind, dict_max,
+                 _ptr(out), cap)
+        if got == -2:
+            raise ValueError("malformed stream")
+        if got >= 0:
+            return out[:got].tobytes()
+        cap *= 4
+
+
+def lz78_stream_decode(payload, nbits, start_bit, code_kind,
+                       dict_max) -> bytes:
+    """Whole-stream LZ78 decode for any code kind (growing ref widths,
+    dictionary reset)."""
+    return _stream_decode("tdc_lz78_stream_decode", payload, nbits,
+                          start_bit, code_kind, dict_max)
+
+
+def lzw_stream_decode(payload, nbits, start_bit, code_kind,
+                      dict_max) -> bytes:
+    """Whole-stream LZW decode (the prefix-code dictionary with the
+    self-referential case and the reset lag)."""
+    return _stream_decode("tdc_lzw_stream_decode", payload, nbits,
+                          start_bit, code_kind, dict_max)
+
+
+def _chunk_array(chunk: bytes):
+    """A chunk as (u8 array, length); an empty chunk passes one zero
+    byte and length 0."""
+    if not chunk:
+        return np.zeros(1, np.uint8), 0
+    inp = np.frombuffer(chunk, np.uint8)
+    return inp, inp.size
+
+
+class _Handle:
+    """A host stream handle, freed by :meth:`close` (or at collection)."""
+
+    _free = ""
+
+    def __init__(self, new_fn: str, *args):
+        self._lib = _build.host_lib()
+        self._h = getattr(self._lib, new_fn)(*args)
+        if not self._h:
+            raise MemoryError(f"{new_fn} failed")
+
+    def close(self) -> None:
+        if self._h:
+            getattr(self._lib, self._free)(self._h)
+            self._h = None
+
+    def __del__(self):
+        try:
+            self.close()
+        except Exception:
+            pass
+
+
+class Lz78Stream(_Handle):
+    """Stateful streaming LZ78/LZW parse and encode (``tdc_lz78s_*``):
+    the dictionary, walk node and factor counter live in the handle;
+    each :meth:`feed` returns the chunk's completed factors as a
+    (packed, nbits) bit run for ``StreamBitSink``. Equal to the buffered
+    compressors' bytes for every chunking."""
+
+    _free = "tdc_lz78s_free"
+
+    def __init__(self, lzw: bool, dict_limit: int, code_kind: int):
+        super().__init__("tdc_lz78s_new", int(lzw), dict_limit)
+        self._kind = code_kind
+
+    def feed(self, chunk: bytes, final: bool):
+        inp, n = _chunk_array(chunk)
+        # worst case a factor: an ascii ref (<= 20 digits and ':') and a
+        # raw literal, 176 bits; plus the final flush factor
+        cap_bits = (n + 2) * 184 + 64
+        out = np.zeros((cap_bits + 7) // 8, np.uint8)
+        got = self._lib.tdc_lz78s_feed(self._h, _ptr(inp), n,
+                                       1 if final else 0, self._kind,
+                                       _ptr(out), cap_bits)
+        if got < 0:
+            raise ValueError("lz78 stream encode overflow")
+        return out, int(got)
+
+
+class _DecStream(_Handle):
+    """Stateful streaming decode: each :meth:`feed` decodes every token
+    completed inside the chunk (rolling back to the token start on a bit
+    underrun) and returns the decoded bytes."""
+
+    _feed = _take = _malformed = _failure = ""
+
+    def feed(self, chunk: bytes, final: bool) -> bytes:
+        inp, n = _chunk_array(chunk)
+        got = getattr(self._lib, self._feed)(self._h, _ptr(inp), n,
+                                             1 if final else 0)
+        if got == -2:
+            raise ValueError(self._malformed)
+        if got < 0:
+            raise ValueError(self._failure)
+        out = np.zeros(max(1, int(got)), np.uint8)
+        took = getattr(self._lib, self._take)(self._h, _ptr(out), int(got))
+        assert took == got
+        return out[:got].tobytes()
+
+
+class Lz78DecStream(_DecStream):
+    """Streaming LZ78/LZW decode (``tdc_lz78ds_*``): the bit tail and the
+    O(dict) (parent, char) expansion state live in the handle."""
+
+    _free, _feed, _take = "tdc_lz78ds_free", "tdc_lz78ds_feed", \
+        "tdc_lz78ds_take"
+    _malformed = "malformed lz78/lzw stream"
+    _failure = "lz78 stream decode failure"
+
+    def __init__(self, lzw: bool, dict_limit: int, code_kind: int):
+        super().__init__("tdc_lz78ds_new", int(lzw), dict_limit, code_kind)
+
+
+# ---- sliding-window lzss (csrc/host/lzss_window.cpp) ----------------------
+
+
+def lzss_window_decode(payload: np.ndarray, nbits: int, start_bit: int,
+                       window: int, code_kind: int) -> bytes:
+    """Decode the sliding-window LZSS stream; raises on malformed
+    input."""
+    payload = np.ascontiguousarray(payload, np.uint8)
+    cap = max(64, nbits * 2 + 64)
+    while True:
+        out = np.empty(cap, np.uint8)
+        got = _build.host_lib().tdc_lzss_window_decode(
+            _ptr(payload), nbits, start_bit, window, code_kind, _ptr(out),
+            cap)
+        if got == -2:
+            raise ValueError("malformed lzss stream")
+        if got >= 0:
+            return out[:got].tobytes()
+        cap *= 4
+
+
+def lzss_window_encode_stream(buf: np.ndarray, start: int, abs_base: int,
+                              final: bool, window: int, threshold: int,
+                              code_kind: int):
+    """Factorize and encode positions [start, limit) of one chunk buffer
+    (limit = len - window unless final): (packed, nbits, next_i). The
+    call keeps no state, so an overflowing buffer grows and the call
+    runs again; raises on a window below 0 or a threshold below 1."""
+    buf = np.ascontiguousarray(buf, np.uint8)
+    cap_bits = max(64, buf.size - start) * 18 + 256
+    next_i = ctypes.c_int64(0)
+    while True:
+        out = np.zeros((cap_bits + 7) // 8, np.uint8)
+        got = _build.host_lib().tdc_lzss_window_encode_s(
+            _ptr(buf), buf.size, start, abs_base, 1 if final else 0,
+            window, threshold, code_kind, _ptr(out), cap_bits,
+            ctypes.addressof(next_i))
+        if got == -2:
+            raise ValueError("lzss stream encode: bad window or threshold")
+        if got >= 0:
+            return out, int(got), int(next_i.value)
+        cap_bits *= 4
+
+
+class LzssDecStream(_DecStream):
+    """Streaming sliding-window LZSS decode (``tdc_lzssds_*``): an
+    O(window) output tail and the undecoded bit tail live in the
+    handle."""
+
+    _free, _feed, _take = "tdc_lzssds_free", "tdc_lzssds_feed", \
+        "tdc_lzssds_take"
+    _malformed = "malformed lzss stream"
+    _failure = "lzss stream decode failure"
+
+    def __init__(self, window: int, code_kind: int):
+        super().__init__("tdc_lzssds_new", window, code_kind)
+
+
+# ---- repair (csrc/host/repair.cpp) ----------------------------------------
+
+
+def _lut_arrays(lut):
+    """(lut_sym, lut_len, k) of a Huffman LUT, or the empty LUT and
+    k = 0 for plain 8-bit literals."""
+    if lut is None:
+        return _EMPTY_LUT, _EMPTY_LUT, 0
+    lut_sym, lut_len, k = lut
+    return (np.ascontiguousarray(lut_sym, np.uint8),
+            np.ascontiguousarray(lut_len, np.uint8), k)
+
+
+def repair(text: np.ndarray, max_rules: int):
+    """Re-Pair grammar by the near-linear host kernel: (start int64,
+    rules [(left, right)]), or None at 2^31 bytes and more or when the
+    rule buffer overflows (the caller's numpy rounds take over)."""
+    if text.size >= (1 << 31):
+        return None
+    text = np.ascontiguousarray(text, np.uint8)
+    n = text.size
+    rules_cap = max(16, n // 2 + 1)
+    rules_out = np.empty(2 * rules_cap, np.int32)
+    start_out = np.empty(max(n, 1), np.int32)
+    start_len = ctypes.c_int64(0)
+    got = _build.host_lib().tdc_repair(
+        _ptr(text), n, min(max_rules, rules_cap), _ptr(rules_out),
+        rules_cap, _ptr(start_out), ctypes.addressof(start_len))
+    if got < 0:
+        return None
+    pairs = rules_out[: 2 * got].reshape(-1, 2)
+    rules = [(int(a), int(b)) for a, b in pairs.tolist()]
+    return start_out[: start_len.value].astype(np.int64), rules
+
+
+def _grow_decode(fn_name: str, what: str, payload, out_hint: int,
+                 *args) -> bytes:
+    payload = np.ascontiguousarray(payload, np.uint8)
+    fn = getattr(_build.host_lib(), fn_name)
+    cap = max(4096, out_hint)
+    while True:
+        out = np.empty(cap, np.uint8)
+        got = fn(_ptr(payload), *args, _ptr(out), cap)
+        if got == -2:
+            raise ValueError(f"malformed {what} stream")
+        if got >= 0:
+            return out[:got].tobytes()
+        cap *= 4
+
+
+def repair_decode(payload, nbits, start_bit, lut, out_hint: int,
+                  code_kind: int = 0) -> bytes:
+    """Re-Pair stream decode."""
+    lut_sym, lut_len, k = _lut_arrays(lut)
+    return _grow_decode("tdc_repair_decode", "repair", payload, out_hint,
+                        nbits, start_bit, _ptr(lut_sym), _ptr(lut_len), k,
+                        code_kind)
+
+
+# ---- lz78u (csrc/host/lz78u.cpp) ------------------------------------------
+
+
+def lz78u_parse(parent, sdepth, is_leaf, leaf_of_rank, isa,
+                text: np.ndarray, threshold: int):
+    """LZ78U suffix-tree factorization event stream:
+    (kind u8, value, aux) arrays."""
+    dt = np.int32 if np.asarray(parent).dtype == np.int32 else np.int64
+    lib = _build.host_lib()
+    fn = lib.tdc_lz78u_parse32 if dt == np.int32 else lib.tdc_lz78u_parse
+    parent = np.ascontiguousarray(parent, dt)
+    sdepth = np.ascontiguousarray(sdepth, dt)
+    is_leaf = np.ascontiguousarray(np.asarray(is_leaf).astype(np.uint8))
+    leaf_of_rank = np.ascontiguousarray(leaf_of_rank, dt)
+    isa = np.ascontiguousarray(isa, dt)
+    text = np.ascontiguousarray(text, np.uint8)
+    n = text.size
+    # ~3 events a char; grow on overflow
+    cap = 4 * max(64, n)
+    while True:
+        kind = np.empty(cap, np.uint8)
+        value = np.empty(cap, dt)
+        aux = np.empty(cap, dt)
+        got = fn(_ptr(parent), _ptr(sdepth), _ptr(is_leaf),
+                 _ptr(leaf_of_rank), _ptr(isa), _ptr(text), n, parent.size,
+                 threshold, _ptr(kind), _ptr(value), _ptr(aux), cap)
+        if got >= 0:
+            break
+        cap *= 2
+        if cap > 64 * max(64, n):
+            raise RuntimeError("lz78u event overflow")
+    return kind[:got].copy(), value[:got].copy(), aux[:got].copy()
+
+
+def lz78u_decode(payload, nbits, start_bit, lut, out_hint: int,
+                 ref_kind: int = 0, str_kind: int = 0) -> bytes:
+    """LZ78U stream decode; ``ref_kind``/``str_kind`` are the ref and
+    string coders' int-code kinds."""
+    lut_sym, lut_len, k = _lut_arrays(lut)
+    return _grow_decode("tdc_lz78u_decode", "lz78u", payload, out_hint,
+                        nbits, start_bit, _ptr(lut_sym), _ptr(lut_len), k,
+                        ref_kind, str_kind)
+
+
+# ---- suffix tree and lfs (csrc/host/lfs.cpp) ------------------------------
+
+
+def suffix_tree(sa: np.ndarray, lcp: np.ndarray):
+    """The lcp-interval suffix tree: (parent, sdepth, is_leaf, suffix,
+    leaf_of_rank, node_count)."""
+    dt = np.int32 if np.asarray(sa).dtype == np.int32 else np.int64
+    lib = _build.host_lib()
+    fn = lib.tdc_suffix_tree32 if dt == np.int32 else lib.tdc_suffix_tree
+    sa = np.ascontiguousarray(sa, dt)
+    lcp = np.ascontiguousarray(lcp, dt)
+    n = sa.size
+    cap = 2 * n + 2
+    parent = np.empty(cap, dt)
+    sdepth = np.empty(cap, dt)
+    is_leaf = np.empty(cap, np.uint8)
+    suffix = np.empty(cap, dt)
+    leaf_of_rank = np.empty(max(1, n), dt)
+    m = fn(_ptr(sa), _ptr(lcp), n, _ptr(parent), _ptr(sdepth),
+           _ptr(is_leaf), _ptr(suffix), _ptr(leaf_of_rank))
+    return (parent[:m], sdepth[:m], is_leaf[:m].astype(bool), suffix[:m],
+            leaf_of_rank[:n], m)
+
+
+def _lfs_parse(fn_name: str, what: str, sa, lcp, n: int, min_lrf: int):
+    sa = np.ascontiguousarray(sa, np.int64)
+    lcp = np.ascontiguousarray(lcp, np.int64)
+    fl_nts = np.zeros(max(n, 1), np.uint32)
+    fl_off = np.zeros(max(n, 1), np.uint32)
+    sl_nts = np.zeros(max(n, 1), np.uint32)
+    sl_dead = np.zeros(max(n, 1), np.uint8)
+    cap = max(16, n // 2 + 1)
+    nts_start = np.empty(cap, np.int64)
+    nts_len = np.empty(cap, np.int64)
+    got = getattr(_build.host_lib(), fn_name)(
+        _ptr(sa), _ptr(lcp), sa.size, n, min_lrf, _ptr(fl_nts),
+        _ptr(fl_off), _ptr(sl_nts), _ptr(sl_dead), _ptr(nts_start),
+        _ptr(nts_len), cap)
+    if got < 0:
+        raise RuntimeError(f"{what} NT buffer overflow")
+    return fl_nts, fl_off, sl_nts, nts_start[:got], nts_len[:got]
+
+
+def lfs2_parse(sa, lcp, n_text: int, min_lrf: int):
+    """LFS2 two-layer parse: (fl_nts, fl_off, sl_nts, nts_start,
+    nts_len)."""
+    return _lfs_parse("tdc_lfs2_parse", "lfs2", sa, lcp, n_text, min_lrf)
+
+
+def lfs_parse(sa, lcp, n_text: int, min_lrf: int):
+    """Single-layer longest-first parse of the LFS st/esa strategies
+    (rules need >= 2 first-layer occurrences): (fl_nts, fl_off,
+    nts_start, nts_len)."""
+    fl_nts, fl_off, _, nts_start, nts_len = _lfs_parse(
+        "tdc_lfs_parse", "lfs", sa, lcp, n_text, min_lrf)
+    return fl_nts, fl_off, nts_start, nts_len
+
+
+def _lfs_rules(fn_name: str, arrays, n: int, min_lrf: int):
+    """Run an LRF computation (``tdc_lfs_simst``/``tdc_lfs_bst``) over
+    the suffix tree's ``arrays`` (parent first): (dictionary,
+    occurrences), or None when its occurrence buffer overflows (the
+    caller's Python walk takes over)."""
+    d_cap = max(16, n + 1)
+    o_cap = max(16, 2 * n + 1)
+    d_start = np.empty(d_cap, np.int64)
+    d_len = np.empty(d_cap, np.int64)
+    o_pos = np.empty(o_cap, np.int64)
+    o_rule = np.empty(o_cap, np.int64)
+    o_len = np.empty(o_cap, np.int64)
+    nd = ctypes.c_int64(0)
+    got = getattr(_build.host_lib(), fn_name)(
+        *[_ptr(a) for a in arrays], arrays[0].size, n, min_lrf,
+        _ptr(d_start), _ptr(d_len), d_cap, _ptr(o_pos), _ptr(o_rule),
+        _ptr(o_len), o_cap, ctypes.addressof(nd))
+    if got < 0:
+        return None
+    m = nd.value
+    dictionary = list(zip(d_start[:m].tolist(), d_len[:m].tolist()))
+    order = np.lexsort((o_rule[:got], o_pos[:got]))
+    occurrences = [
+        (int(o_pos[i]), int(o_rule[i]), int(o_len[i])) for i in order
+    ]
+    return dictionary, occurrences
+
+
+def lfs_simst(parent, sdepth, is_leaf, suffix, n, min_lrf):
+    """SimST LRF computation, as ``SimSTStrategy``'s Python walk:
+    (dictionary, occurrences), or None on an occurrence overflow."""
+    return _lfs_rules("tdc_lfs_simst", (
+        np.ascontiguousarray(parent, np.int64),
+        np.ascontiguousarray(sdepth, np.int64),
+        np.ascontiguousarray(np.asarray(is_leaf).astype(np.uint8)),
+        np.ascontiguousarray(suffix, np.int64),
+    ), n, min_lrf)
+
+
+def lfs_bst(parent, sdepth, suffix, n, min_lrf):
+    """BST LRF computation, as ``BSTStrategy``'s Python walk:
+    (dictionary, occurrences), or None on an occurrence overflow."""
+    return _lfs_rules("tdc_lfs_bst", (
+        np.ascontiguousarray(parent, np.int64),
+        np.ascontiguousarray(sdepth, np.int64),
+        np.ascontiguousarray(suffix, np.int64),
+    ), n, min_lrf)
+
+
+def _lfs_decode(fn_name: str, what: str, payload, nbits, start_bit, lut,
+                w_id, dict_lens) -> bytes:
+    lut_sym, lut_len, k = _lut_arrays(lut)
+    lens = np.ascontiguousarray(dict_lens, np.int64)
+    return _grow_decode(fn_name, what, payload, nbits * 2 + 64, nbits,
+                        start_bit, _ptr(lut_sym), _ptr(lut_len), k, w_id,
+                        _ptr(lens), lens.size)
+
+
+def lfs_start_decode(payload, nbits, start_bit, lut, w_id,
+                     dict_lens: np.ndarray) -> bytes:
+    """Decode the LFS rule strings and start string (flags and literals
+    or rule ids); ``lut`` is (sym, len, k), or None for plain 8-bit
+    literals."""
+    return _lfs_decode("tdc_lfs_start_decode", "lfs", payload, nbits,
+                       start_bit, lut, w_id, dict_lens)
+
+
+def lfs2_decode(payload, nbits, start_bit, lut, w_id,
+                dict_lens: np.ndarray) -> bytes:
+    """Decode the LFS2 two-layer rule set and start stream."""
+    return _lfs_decode("tdc_lfs2_decode", "lfs2", payload, nbits,
+                       start_bit, lut, w_id, dict_lens)

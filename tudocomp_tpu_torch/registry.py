@@ -1,4 +1,5 @@
-"""Algorithm registry: name -> class, algorithm-string evaluation.
+"""Algorithm registry: name -> class, algorithm-string evaluation,
+configuration enumeration.
 
 Python re-design of the reference's ``Registry.hpp`` + ``eval::cl_eval``:
 an algorithm string is parsed (``algostr.py``) and unified against the
@@ -7,16 +8,20 @@ declaration order, keyword args by name, missing options fall back to
 declared defaults (which may themselves be algorithm strings). The result
 is a resolved ``Env`` tree ready for instantiation.
 
-A copy of ``tudocomp_tpu/registry.py`` for the port, with two changes:
+``all_configurations`` enumerates every static combination of registered
+sub-algorithms for the matrix test (reference
+``Registry::all_algorithms_with_static``, recursion-depth capped per type).
+
+A copy of ``tudocomp_tpu/registry.py`` for the port, with one change:
 evaluation (and ``create_algo``) takes the torch device
 (``torch_device``, ``"cuda"`` by default) and hands it to every ``Env``
-of the tree, and the matrix enumeration (``all_configurations``) is left
-out until the port has the compressor and coder families it enumerates.
+of the tree.
 """
 
 from __future__ import annotations
 
-from typing import Dict, List, Type
+import itertools
+from typing import Dict, Iterator, List, Type
 
 from tudocomp_tpu_torch.algostr import Node, parse
 from tudocomp_tpu_torch.meta import (
@@ -153,6 +158,54 @@ class Registry:
             if ov.is_algorithm:
                 r = r | self.restrictions_of(ov.sub_env)
         return r
+
+    # -- enumeration (matrix test support) -----------------------------------
+
+    def all_configurations(
+        self, type: str = "compressor", max_depth_per_type: int = 2
+    ) -> Iterator[str]:
+        """Yield an algorithm string for every registered static combination.
+
+        Sub-algorithm options range over all registered algorithms of the
+        accepted type; dynamic options keep their defaults. Recursion per
+        algorithm type is capped (reference ``Registry.hpp:54-63`` caps at 2)
+        so self-referential types terminate.
+        """
+        for name in self.names(type):
+            yield from self._enum_cls(type, name, {type: 1}, max_depth_per_type)
+
+    def _enum_cls(self, type, name, depth, cap) -> Iterator[str]:
+        cls = self.lookup(type, name)
+        meta = cls.meta()
+        sub_opts = [o for o in meta.options if o.kind == "submeta"]
+        if not sub_opts:
+            yield name
+            return
+        choice_lists: List[List[str]] = []
+        for o in sub_opts:
+            t = o.accepted_type
+            d = dict(depth)
+            d[t] = d.get(t, 0) + 1
+            if d[t] > cap:
+                if o.default is None:
+                    return  # cannot instantiate within depth cap
+                choice_lists.append([o.default])
+                continue
+            subs = []
+            for sub_name in self.names(t):
+                if o.accepts is not None and sub_name not in o.accepts:
+                    continue
+                subs.extend(self._enum_cls(t, sub_name, d, cap))
+            if not subs:
+                if o.default is None:
+                    return
+                subs = [o.default]
+            choice_lists.append(subs)
+        for combo in itertools.product(*choice_lists):
+            args = ", ".join(
+                f"{o.name}={c}" for o, c in zip(sub_opts, combo)
+            )
+            yield f"{name}({args})"
 
     def doc_listing(self) -> str:
         """Human-readable listing of all registered algorithms (CLI --list)."""
