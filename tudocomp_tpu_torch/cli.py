@@ -55,22 +55,24 @@ def _instantiate(algostring: str, blocks: int | None = None,
     into nested chain() (reference ``tudocomp_driver_tests.cpp:211-233``).
     ``blocks`` wraps the whole chain in the constant-memory block
     container; ``threads`` compresses that many blocks concurrently."""
-    nodes = parse_chain(algostring)
-    node = nodes[0]
-    for nxt in nodes[1:]:
-        node = Node("chain", [("first", node), ("second", nxt)])
-    if blocks is not None:
-        node = Node("blocks", [
-            ("inner", node), ("b", str(blocks)),
-            ("workers", str(max(1, threads))),
-        ])
-    elif threads > 1 and node.name == "blocks":
-        # runtime knob on an existing block container (e.g. decompress
-        # of a self-describing header, which never persists `workers`)
-        node = Node(node.name, [
-            kv for kv in node.args if kv[0] != "workers"
-        ] + [("workers", str(threads))])
-    return REGISTRY.instantiate(node, torch_device=device)
+    with StatPhase("front.instantiate"):
+        nodes = parse_chain(algostring)
+        node = nodes[0]
+        for nxt in nodes[1:]:
+            node = Node("chain", [("first", node), ("second", nxt)])
+        if blocks is not None:
+            node = Node("blocks", [
+                ("inner", node), ("b", str(blocks)),
+                ("workers", str(max(1, threads))),
+            ])
+        elif threads > 1 and node.name == "blocks":
+            # runtime knob on an existing block container (e.g.
+            # decompress of a self-describing header, which never
+            # persists `workers`)
+            node = Node(node.name, [
+                kv for kv in node.args if kv[0] != "workers"
+            ] + [("workers", str(threads))])
+        return REGISTRY.instantiate(node, torch_device=device)
 
 
 def parse_size(s: str) -> int:
@@ -86,43 +88,52 @@ def compress(
     algostring: str, data: bytes, raw: bool = False,
     blocks: int | None = None, device="cuda",
 ) -> bytes:
-    comp = _instantiate(algostring, blocks, device=device)
-    restr = REGISTRY.restrictions_of(comp.env)
-    prepared = escape(data, restr)
-    with StatPhase("compress"):
-        payload = comp.compress(prepared)
-    if raw:
-        return payload
-    return comp.env.id_string().encode() + b"%" + payload
+    with StatPhase("compress") as phase:
+        comp = _instantiate(algostring, blocks, device=device)
+        restr = REGISTRY.restrictions_of(comp.env)
+        out = comp.compress(escape(data, restr))
+        if not raw:
+            with StatPhase("front.frame") as frame:
+                out = comp.env.id_string().encode() + b"%" + out
+                frame.log_stat("bytes", len(out))
+        phase.log_stat("bytes_in", len(data))
+        phase.log_stat("bytes_out", len(out))
+    return out
 
 
 def decompress(
     data: bytes, raw_algo: str | None = None, device="cuda"
 ) -> bytes:
+    with StatPhase("decompress") as phase:
+        with StatPhase("front.unframe") as frame:
+            algostring, payload = _unframe(data, raw_algo)
+            frame.log_stat("bytes", len(payload))
+        comp = _instantiate(algostring, device=device)
+        restr = REGISTRY.restrictions_of(comp.env)
+        out = unescape(comp.decompress(payload), restr)
+        phase.log_stat("bytes_in", len(data))
+        phase.log_stat("bytes_out", len(out))
+    return out
+
+
+def _unframe(data: bytes, raw_algo: str | None) -> tuple[str, bytes]:
+    """The algorithm string and the payload of a container: ``raw_algo``
+    and all of ``data`` for a headerless one."""
     if raw_algo is not None:
-        algostring = raw_algo
-        payload = data
-    else:
-        sep = data.find(b"%", 0, MAX_HEADER)
-        if sep < 0:
-            raise ValueError(
-                "no algorithm header found (use --raw -a ALGO?)"
-            )
-        try:
-            # headers are ASCII algorithm strings; garbage bytes that
-            # happen to contain '%' must error cleanly, not crash
-            # (reference scan cap + error: tudocomp_driver.cpp:293-307)
-            algostring = data[:sep].decode("ascii")
-        except UnicodeDecodeError:
-            raise ValueError(
-                "no algorithm header found (use --raw -a ALGO?)"
-            ) from None
-        payload = data[sep + 1 :]
-    comp = _instantiate(algostring, device=device)
-    restr = REGISTRY.restrictions_of(comp.env)
-    with StatPhase("decompress"):
-        out = comp.decompress(bytes(payload))
-    return unescape(out, restr)
+        return raw_algo, bytes(data)
+    sep = data.find(b"%", 0, MAX_HEADER)
+    if sep < 0:
+        raise ValueError("no algorithm header found (use --raw -a ALGO?)")
+    try:
+        # headers are ASCII algorithm strings; garbage bytes that happen
+        # to contain '%' must error cleanly, not crash (reference scan
+        # cap + error: tudocomp_driver.cpp:293-307)
+        algostring = data[:sep].decode("ascii")
+    except UnicodeDecodeError:
+        raise ValueError(
+            "no algorithm header found (use --raw -a ALGO?)"
+        ) from None
+    return algostring, bytes(data[sep + 1 :])
 
 
 def _stream_main(args, p) -> int | None:

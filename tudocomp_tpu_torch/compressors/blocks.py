@@ -154,8 +154,9 @@ class BlocksCompressor(Compressor):
         written = 0
         if workers > 1:
             # bounded pipeline: <= workers+1 blocks in flight, frames
-            # written in order (StatPhase is process-global, so the
-            # parallel section is one phase rather than one per block)
+            # written in order (the parallel section is one phase: the
+            # phases a worker thread opens are roots on that thread and
+            # stay out of this tree)
             from collections import deque
             from concurrent.futures import ThreadPoolExecutor
 

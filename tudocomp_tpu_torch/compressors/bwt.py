@@ -31,6 +31,7 @@ from tudocomp_tpu_torch.meta import Meta
 from tudocomp_tpu_torch.ops.suffix import (
     bwt_device, isa_device, suffix_array_device, unbwt_device,
 )
+from tudocomp_tpu_torch.stats import StatPhase
 
 
 class BWTCompressor(Compressor):
@@ -59,18 +60,44 @@ class BWTCompressor(Compressor):
             raise ValueError("bwt requires a sentineled input")
         t = np.frombuffer(data, np.uint8)
         dev = self._device_path(len(data))
-        if dev is not None:
-            td = torch.from_numpy(t.copy()).to(dev)
-            bw = bwt_device(td, isa_device(suffix_array_device(td)))
-            return bw.cpu().numpy().tobytes()
-        return bwt_forward(t, suffix_array(t)).tobytes()
+        if dev is None:
+            return bwt_forward(t, suffix_array(t)).tobytes()
+        with StatPhase("bwt.forward") as phase:
+            host = torch.from_numpy(t.copy())
+            with StatPhase("bwt.upload") as up:
+                up.log_copy(host)
+                td = host.to(dev)
+            info = {}
+            with StatPhase("bwt.sa"):
+                sa = suffix_array_device(td, info)
+            with StatPhase("bwt.isa_bwt"):
+                bw = bwt_device(td, isa_device(sa))
+            with StatPhase("bwt.download") as down:
+                bw = bw.cpu()
+                down.log_copy(bw)
+            phase.log_stat("bytes_in", len(data))
+            phase.log_stat("rounds", info["rounds"])
+            return bw.numpy().tobytes()
 
     def decompress(self, data: bytes) -> bytes:
         dev = self._device_path(len(data))
-        if dev is not None:
-            arr = np.frombuffer(data, np.uint8)
-            if debug.PARANOID:  # mirror the host path's LF invariant
-                debug.check_lf(compute_lf(arr), arr)
-            out = unbwt_device(torch.from_numpy(arr.copy()).to(dev))
-            return out.cpu().numpy().tobytes() + b"\x00"
-        return native.bwt_decode(data) + b"\x00"
+        if dev is None:
+            return native.bwt_decode(data) + b"\x00"
+        arr = np.frombuffer(data, np.uint8)
+        if debug.PARANOID:  # mirror the host path's LF invariant
+            debug.check_lf(compute_lf(arr), arr)
+        with StatPhase("bwt.inverse") as phase:
+            host = torch.from_numpy(arr.copy())
+            with StatPhase("bwt.upload") as up:
+                up.log_copy(host)
+                bw = host.to(dev)
+            info = {}
+            with StatPhase("bwt.unbwt"):
+                out = unbwt_device(bw, info)
+            with StatPhase("bwt.download") as down:
+                out = out.cpu()
+                down.log_copy(out)
+            out = out.numpy().tobytes() + b"\x00"
+            phase.log_stat("bytes_out", len(out))
+            phase.log_stat("rounds", info["rounds"])
+        return out

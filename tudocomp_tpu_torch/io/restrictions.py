@@ -19,6 +19,7 @@ from __future__ import annotations
 import numpy as np
 
 from tudocomp_tpu_torch.meta import InputRestrictions
+from tudocomp_tpu_torch.stats import StatPhase
 
 # UTF-8-illegal bytes, preferred for replacements (reference pool)
 ESCAPE_BYTE_POOL = [255, 254, 192, 193, 245, 246, 247, 248, 249, 250, 251,
@@ -55,6 +56,14 @@ def build_escape_map(restrictions: InputRestrictions):
 
 def escape(data: bytes, restrictions: InputRestrictions) -> bytes:
     """Escape restricted bytes; append sentinel if required. Vectorized."""
+    with StatPhase("front.escape") as phase:
+        out = _escape(data, restrictions)
+        phase.log_stat("bytes_in", len(data))
+        phase.log_stat("bytes_out", len(out))
+    return out
+
+
+def _escape(data: bytes, restrictions: InputRestrictions) -> bytes:
     em = build_escape_map(restrictions)
     arr = np.frombuffer(data, dtype=np.uint8)
     if em is not None:
@@ -82,6 +91,14 @@ def escape(data: bytes, restrictions: InputRestrictions) -> bytes:
 
 def unescape(data: bytes, restrictions: InputRestrictions) -> bytes:
     """Inverse of :func:`escape` (strips the sentinel first)."""
+    with StatPhase("front.unescape") as phase:
+        out = _unescape(data, restrictions)
+        phase.log_stat("bytes_in", len(data))
+        phase.log_stat("bytes_out", len(out))
+    return out
+
+
+def _unescape(data: bytes, restrictions: InputRestrictions) -> bytes:
     if restrictions.null_terminate:
         if not data.endswith(b"\x00"):
             raise ValueError("restricted output missing sentinel")

@@ -25,7 +25,6 @@ The container bytes do not depend on ``batch_lanes``.
 from __future__ import annotations
 
 import os
-import time
 from dataclasses import dataclass
 
 import numpy as np
@@ -40,6 +39,7 @@ from tudocomp_tpu_torch.ops.hufdec import SEG, decode_segments, decoder_tables
 from tudocomp_tpu_torch.ops.segpack import (
     huffman_select_segments, rle_select_segments,
 )
+from tudocomp_tpu_torch.stats import StatPhase
 from tudocomp_tpu_torch.utils.vbyte import (
     encode_vbyte_array, read_vbyte, write_vbyte,
 )
@@ -167,47 +167,66 @@ class BlockCodec:
         if not data:
             raise ValueError("encode needs a non-empty input")
         dev = self.device
-        seg_rows, seg_lens = self.split_segments(data)
-        nseg = seg_rows.shape[0]
-        sampled = self.sample_rule(nseg)
-        hist = torch.zeros(256, dtype=torch.int64, device=dev)
-        stage1 = []
-        for lo in range(0, nseg, self.batch_lanes):
-            hi = min(lo + self.batch_lanes, nseg)
-            sel, counts, rle_raw, _ = rle_stage(
-                _upload(seg_rows[lo:hi], dev), _upload(seg_lens[lo:hi], dev),
-                offset=self.offset, hist_rows=self._hist_rows(lo, hi, sampled),
-                hist=hist,
-            )
-            stage1.append((sel, counts, rle_raw))
-        hist_np = hist.cpu().numpy()
-        table = self._table_from_hist(hist_np, sampled)
-        t = device_tables(table, dev)
-        stage2 = [huff_stage(sel, counts, t["sym_code"], t["sym_len"])
-                  for sel, counts, _ in stage1]
-
-        def host(parts):
-            return torch.cat(parts).cpu().numpy()
-
+        with StatPhase("tbc2.encode") as phase:
+            with StatPhase("tbc2.split"):
+                seg_rows, seg_lens = self.split_segments(data)
+            nseg = seg_rows.shape[0]
+            phase.log_stat("bytes_in", len(data))
+            phase.log_stat("segments", nseg)
+            sampled = self.sample_rule(nseg)
+            hist = torch.zeros(256, dtype=torch.int64, device=dev)
+            stage1 = []
+            for lo in range(0, nseg, self.batch_lanes):
+                hi = min(lo + self.batch_lanes, nseg)
+                with StatPhase("tbc2.upload") as up:
+                    up.log_copy(seg_rows[lo:hi], seg_lens[lo:hi])
+                    batch = (_upload(seg_rows[lo:hi], dev),
+                             _upload(seg_lens[lo:hi], dev))
+                with StatPhase("tbc2.rle"):
+                    sel, counts, rle_raw, _ = rle_stage(
+                        *batch, offset=self.offset,
+                        hist_rows=self._hist_rows(lo, hi, sampled),
+                        hist=hist,
+                    )
+                # free the batch's input before the next one is uploaded
+                del batch
+                stage1.append((sel, counts, rle_raw))
+            with StatPhase("tbc2.table"):
+                hist_np = hist.cpu().numpy()
+                table = self._table_from_hist(hist_np, sampled)
+                t = device_tables(table, dev)
+            stage2 = []
+            for sel, counts, _ in stage1:
+                with StatPhase("tbc2.huff"):
+                    stage2.append(huff_stage(sel, counts, t["sym_code"],
+                                             t["sym_len"]))
+            _, counts, rle_raw = zip(*stage1)
+            words, bits, huff_raw = zip(*stage2)
+            with StatPhase("tbc2.download") as down:
+                host = [torch.cat(p).cpu()
+                        for p in (counts, rle_raw, huff_raw, words, bits)]
+                down.log_copy(*host)
+            counts, rle_raw, huff_raw, words, bits = (h.numpy() for h in host)
+        self.timings = {"encode": phase.seconds}
         return Encoded(
-            orig_len=len(data), hist=hist_np, table=table,
-            counts=host([s[1] for s in stage1]),
-            rle_raw=host([s[2] for s in stage1]),
-            huff_raw=host([s[2] for s in stage2]),
-            words=host([s[0] for s in stage2]).view(np.uint32),
-            bits=host([s[1] for s in stage2]),
+            orig_len=len(data), hist=hist_np, table=table, counts=counts,
+            rle_raw=rle_raw, huff_raw=huff_raw, words=words.view(np.uint32),
+            bits=bits,
         )
 
     def compress(self, data: bytes) -> bytes:
         if len(data) == 0:
             return self._assemble_empty()
-        t0 = time.perf_counter()
         e = self.encode(data)
-        t1 = time.perf_counter()
-        out = self._assemble(e.orig_len, e.table, e.counts, e.rle_raw,
-                             e.huff_raw, e.words, e.bits)
-        self.timings = {"encode": t1 - t0,
-                        "assemble": time.perf_counter() - t1}
+        with StatPhase("tbc2.assemble") as phase:
+            out = self._assemble(e.orig_len, e.table, e.counts, e.rle_raw,
+                                 e.huff_raw, e.words, e.bits)
+            phase.log_stat("bytes_in", len(data))
+            phase.log_stat("bytes_out", len(out))
+            phase.log_stat("segments", e.counts.shape[0])
+            phase.log_stat("rle_raw", int(e.rle_raw.sum()))
+            phase.log_stat("huff_raw", int(e.huff_raw.sum()))
+        self.timings["assemble"] = phase.seconds
         return out
 
     def _min_code_len(self) -> int:
@@ -314,18 +333,22 @@ class BlockCodec:
     # -- decode --------------------------------------------------------------
 
     def _parse(self, data: bytes):
-        if data[:4] != MAGIC:
-            raise ValueError("bad magic")
-        header_len, pos = read_vbyte(data, 4)
-        head = BitReader(data[pos : pos + header_len])
-        pos += header_len
-        if head.read_compressed_int() != SEG:
-            raise ValueError("unsupported segment size")
-        offset = head.read_compressed_int()
-        orig_len = head.read_compressed_int()
-        table = HuffmanTable.read(head) if head.read_bit() else None
-        nseg = -(-orig_len // SEG)
-        counts, flags, poff, pbytes = native.tbc2_parse(data, pos, nseg)
+        with StatPhase("tbc2.parse") as phase:
+            if data[:4] != MAGIC:
+                raise ValueError("bad magic")
+            header_len, pos = read_vbyte(data, 4)
+            head = BitReader(data[pos : pos + header_len])
+            pos += header_len
+            if head.read_compressed_int() != SEG:
+                raise ValueError("unsupported segment size")
+            offset = head.read_compressed_int()
+            orig_len = head.read_compressed_int()
+            table = HuffmanTable.read(head) if head.read_bit() else None
+            nseg = -(-orig_len // SEG)
+            counts, flags, poff, pbytes = native.tbc2_parse(data, pos, nseg)
+            phase.log_stat("bytes_in", len(data))
+            phase.log_stat("segments", nseg)
+        self.timings = {"parse": phase.seconds}
         return table, offset, orig_len, counts, flags, poff, pbytes
 
     def decompress(self, data: bytes) -> bytes:
@@ -339,25 +362,30 @@ class BlockCodec:
 
     def decompress_device(self, data: bytes) -> bytes:
         """Parse on the host, then decode every segment with K4."""
-        t0 = time.perf_counter()
         (table, offset, orig_len, counts, flags, poff,
          pbytes) = self._parse(data)
-        t1 = time.perf_counter()
         if orig_len == 0:
             return b""
-        if counts.max() > SEG or np.any(poff + pbytes > len(data)):
-            raise ValueError("malformed TBC2 frames")
-        dev = self.device
-        t = device_tables(table, dev)
-        out = decode_segments(
-            _upload(np.frombuffer(data, np.uint8).copy(), dev),
-            _upload(poff.astype(np.int64), dev),
-            _upload(pbytes.astype(np.int64), dev),
-            _upload(counts.astype(np.int32), dev),
-            _upload(flags.astype(np.uint8), dev),
-            t["thresh"], t["offs"], t["symbols"],
-            offset=offset, orig_len=orig_len, fast=t["fast"],
-        ).cpu().numpy().tobytes()
-        self.timings = {"parse": t1 - t0,
-                        "decode": time.perf_counter() - t1}
+        with StatPhase("tbc2.decode") as phase:
+            if counts.max() > SEG or np.any(poff + pbytes > len(data)):
+                raise ValueError("malformed TBC2 frames")
+            dev = self.device
+            t = device_tables(table, dev)
+            host = (np.frombuffer(data, np.uint8).copy(),
+                    poff.astype(np.int64), pbytes.astype(np.int64),
+                    counts.astype(np.int32), flags.astype(np.uint8))
+            with StatPhase("tbc2.upload") as up:
+                up.log_copy(*host)
+                args = [_upload(a, dev) for a in host]
+            del host
+            out = decode_segments(
+                *args, t["thresh"], t["offs"], t["symbols"],
+                offset=offset, orig_len=orig_len, fast=t["fast"],
+            )
+            with StatPhase("tbc2.download") as down:
+                out = out.cpu()
+                down.log_copy(out)
+            out = out.numpy().tobytes()
+            phase.log_stat("bytes_out", len(out))
+        self.timings["decode"] = phase.seconds
         return out

@@ -27,6 +27,8 @@ from __future__ import annotations
 
 import torch
 
+from tudocomp_tpu_torch.stats import StatPhase
+
 _I32 = torch.int32
 _I64 = torch.int64
 
@@ -80,9 +82,13 @@ def _check_text(text: torch.Tensor) -> int:
 def _finish(rank, top: int, k: int, n: int, info) -> tuple[torch.Tensor, int]:
     """Double from gap ``k`` until every rank is distinct (JAX's
     ``while_loop``: ``max(rank) < n - 1`` and ``k < 2n``); counts the
-    rounds into ``info["rounds"]``."""
+    rounds into ``info["rounds"]``. Each round is a ``suffix.round``
+    phase with its gap ``k`` and the distinct ranks after it."""
     while top < n - 1 and k < 2 * n:
-        rank, top = _double(rank, k)
+        with StatPhase("suffix.round") as phase:
+            rank, top = _double(rank, k)
+            phase.log_stat("k", k)
+            phase.log_stat("ranks", top + 1)
         k *= 2
         if info is not None:
             info["rounds"] += 1
@@ -143,12 +149,14 @@ def bwt_device(text: torch.Tensor, isa: torch.Tensor) -> torch.Tensor:
     return bwt
 
 
-def unbwt_device(bwt: torch.Tensor) -> torch.Tensor:
+def unbwt_device(bwt: torch.Tensor, info: dict | None = None
+                 ) -> torch.Tensor:
     """Inverse BWT of a 0-sentineled text's transform (u8[n] -> u8[n-1],
     sentinel stripped). LF is the inverse of the BWT's stable argsort;
     the walk's orbit ``t_k = LF^k(0)`` fills in ceil(log2 n) rounds of
     gathers, ``t[k + m] = LF^m(t[k])``, squaring ``LF^m`` between them.
-    Equal to the host LF walk byte for byte."""
+    Equal to the host LF walk byte for byte. ``info``, if given,
+    receives ``rounds``: the rounds of gathers."""
     n = bwt.numel()
     order = torch.sort(bwt, stable=True).indices
     lf = torch.empty(n, dtype=_I64, device=bwt.device)
@@ -156,11 +164,15 @@ def unbwt_device(bwt: torch.Tensor) -> torch.Tensor:
     orbit = torch.zeros(n, dtype=_I64, device=bwt.device)  # t_0 = 0
     power = lf  # lf^m
     m = 1
+    rounds = 0
     while m < n - 1:
         take = min(m, n - 1 - m)
         orbit[m : m + take] = power[orbit[:take]]
         m *= 2
+        rounds += 1
         if m < n - 1:
             power = power[power]
+    if info is not None:
+        info["rounds"] = rounds
     # host walk: out[n-1-j] = bwt[t_{j-1}] for j = 1..n-1
     return bwt[orbit[: n - 1]].flip(0)
