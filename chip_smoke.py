@@ -8,7 +8,8 @@ It needs one CUDA device and exits non-zero without one. Phases:
    and the build of the CUDA kernels from ``tudocomp_tpu_torch/csrc``;
 2. each kernel (K1 RLE pack, K1's select entry with the ``rle_raw``
    escape, K3 histogram, K3 on the 1-in-8 sample read in place, K2
-   Huffman pack, K2's select entry with the ``huff_raw`` escape, K4
+   Huffman pack, K2's select entry with the ``huff_raw`` escape, K8
+   frame pack, whose frames must also equal the numpy twin's, K4
    decode) against its plain torch version on the card, at the shapes
    of the main path's first 16 MiB batch: exact equality, both times
    (CUDA events, after a warm-up);
@@ -261,7 +262,7 @@ def kernels_vs_plain(corpus, dev, check: Checker) -> None:
     from tudocomp_tpu_torch.models.blockcodec import (
         BlockCodec, device_tables, huff_stage,
     )
-    from tudocomp_tpu_torch.ops import hist, segpack
+    from tudocomp_tpu_torch.ops import frames, hist, segpack
 
     codec = BlockCodec(device=dev)
     data = corpus[: 8192 * 2048].tobytes()
@@ -341,11 +342,29 @@ def kernels_vs_plain(corpus, dev, check: Checker) -> None:
                     huff_stage(sel, counts, code, length)):
         if not torch.equal(a, b):
             raise AssertionError("huff_stage differs from K2's select entry")
+    meta1, pbytes, offs, head = frames.frame_layout(counts, rle_raw,
+                                                    huff_raw, bits)
+    total = int(head[0])
+    (packed,) = check(
+        "frame_pack",
+        lambda: frames.pack_frames(out, meta1, pbytes, offs, torch.empty(
+            total, dtype=torch.uint8, device=dev)),
+        lambda: frames.pack_frames_plain(out, meta1, pbytes, offs,
+                                         torch.zeros(total, dtype=torch.uint8,
+                                                     device=dev)),
+        # the payload bytes read and the frames written, + each frame's
+        # two fields and offset
+        nbytes=int(pbytes.sum()) + total + 16 * nseg,
+        nops=OPS_PER_ELEM * total,
+    )
     container = codec._assemble(
         len(data), table, counts.cpu().numpy(), rle_raw.cpu().numpy(),
         huff_raw.cpu().numpy(), out.cpu().numpy().view(np.uint32),
         bits.cpu().numpy(),
     )
+    if codec._prefix(len(data), table) + packed.cpu().numpy().tobytes() \
+            != container:
+        raise AssertionError("K8's frames differ from the numpy twin's")
     check_decode("decode", codec, container, data, dev, check)
 
 

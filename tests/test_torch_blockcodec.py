@@ -26,43 +26,10 @@ from tudocomp_tpu_torch import native as port_native
 from tudocomp_tpu_torch.coders.huffman import HuffmanTable as PortTable
 from tudocomp_tpu_torch.io.bitio import BitReader as PortReader
 from tudocomp_tpu_torch.io.bitio import BitWriter as PortWriter
+from tbc2_cases import CASES, mixed as _mixed
 
 SEG = 2048
 CPU = torch.device("cpu")
-
-
-def _mixed(nseg: int, seed: int = 0) -> bytes:
-    """Segments cycling through random bytes (huff_raw), text, runs of 2
-    (rle_raw) and long runs, so both escapes and plain coding occur."""
-    rng = np.random.default_rng(seed)
-    text = b"<page><title>Anarchism</title> the quick brown fox. " * 40
-    parts = []
-    for i in range(nseg):
-        kind = i % 4
-        if kind == 0:
-            seg = rng.integers(0, 256, SEG, dtype=np.uint8).tobytes()
-        elif kind == 1:
-            seg = text[i : i + SEG]
-        elif kind == 2:
-            seg = np.repeat(rng.integers(0, 256, SEG // 2, dtype=np.uint8),
-                            2).tobytes()
-        else:
-            seg = np.repeat(rng.integers(97, 101, 64, dtype=np.uint8),
-                            32).tobytes()
-        parts.append(seg)
-    return b"".join(parts)
-
-
-#: name -> (input, codec options); JAX shapes: <= 8 segments, 64 segments
-CASES = {
-    "empty": (b"", {}),
-    "one_byte": (b"x", {}),
-    "mixed_5seg": (_mixed(5)[:-3], {}),
-    "sampled_64seg": (_mixed(64, seed=1), {}),
-    "min_code_len_4": (_mixed(5, seed=2)[:-3], {"min_code_len": 4}),
-    # offset biases every RLE run token and is written into the header
-    "offset_3": (_mixed(5, seed=3)[:-3], {"offset": 3}),
-}
 
 
 @pytest.fixture(scope="module")

@@ -14,10 +14,14 @@ import torch
 from tudocomp_tpu_torch import BlockCodec, device_tables
 from tudocomp_tpu_torch.coders.huffman import HuffmanTable
 from tudocomp_tpu_torch.ops import CODEC_KERNELS, launch_counts, reset_launches
+from tudocomp_tpu_torch.models.blockcodec import BATCH_LANES
 from tudocomp_tpu_torch.ops.bitpack_chunks import (
     pack_bytes_huffman_chunks, pack_bytes_huffman_chunks_plain,
     pack_tokens_chunks, pack_tokens_chunks_plain, rle_pack_chunks,
     rle_pack_chunks_plain,
+)
+from tudocomp_tpu_torch.ops.frames import (
+    frame_layout, frames_host, pack_frames, pack_frames_plain,
 )
 from tudocomp_tpu_torch.ops.hist import (
     histogram_rows, histogram_rows_plain, histogram_words,
@@ -37,6 +41,7 @@ from tudocomp_tpu_torch.ops.segpack import (
 from tudocomp_tpu_torch.probes import ablate, floor, place
 from test_torch_container_hardening import flipped, hardening_container
 from test_torch_k2_k3 import BATCHES, NAMES, select_case
+from tbc2_cases import FRAME_CASES
 
 pytestmark = pytest.mark.cuda
 
@@ -151,6 +156,43 @@ def test_codec_cuda_empty_and_tiny(cuda):
         container = gpu.compress(data)
         assert container == BlockCodec(device="cpu").compress(data)
         assert gpu.decompress_device(container) == data
+
+
+@pytest.mark.parametrize("batch_lanes", [BATCH_LANES, 5, 8])
+@pytest.mark.parametrize("name", list(FRAME_CASES))
+def test_frames_on_card_match_the_host_twin(cuda, name, batch_lanes):
+    """K8 builds the frames of ``BlockCodec.compress`` on the card: the
+    container equals the CPU codec's, its frames the numpy twin's of the
+    same stage results, with one launch a batch; and K8 alone, at
+    offsets that start at every residue mod 16 in a dirty buffer, writes
+    the plain version's bytes and no others."""
+    data, opts = FRAME_CASES[name]
+    _dirty(cuda)
+    gpu = BlockCodec(device=cuda, batch_lanes=batch_lanes, **opts)
+    reset_launches()
+    container = gpu.compress(data)
+    nseg = -(-len(data) // SEG)
+    assert launch_counts()["frame_pack"] == -(-nseg // batch_lanes)
+    assert container == BlockCodec(device="cpu", **opts).compress(data)
+    e = gpu.encode(data)
+    host = (e.counts, e.rle_raw, e.huff_raw, e.words, e.bits)
+    assert container == gpu._prefix(len(data), e.table) + frames_host(*host)
+
+    counts, rle_raw, huff_raw, bits = _to(cuda, e.counts, e.rle_raw,
+                                          e.huff_raw, e.bits)
+    meta1, pbytes, offs, head = frame_layout(counts, rle_raw, huff_raw,
+                                             bits)
+    (words,) = _to(cuda, e.words.view(np.int32))
+    total = int(head[0])
+    for shift in range(16):
+        out = torch.full((total + 48,), 0xAB, dtype=torch.uint8,
+                         device=cuda)
+        pack_frames(words, meta1, pbytes, offs + shift, out)
+        want = pack_frames_plain(words.cpu(), meta1.cpu(), pbytes.cpu(),
+                                 offs.cpu() + shift,
+                                 torch.full((total + 48,), 0xAB,
+                                            dtype=torch.uint8))
+        assert torch.equal(out.cpu(), want), shift
 
 
 def _chunks(seed: int, c: int = 4, n: int = 16384):

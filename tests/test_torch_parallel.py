@@ -32,7 +32,7 @@ from tudocomp_tpu_torch.parallel import (
 )
 from tudocomp_tpu_torch.parallel.distributed import gather_frames_host_local
 from tudocomp_tpu_torch.parallel.launch import run_ranks
-from tudocomp_tpu_torch.parallel.pipeline import _prefix, decompress_sharded
+from tudocomp_tpu_torch.parallel.pipeline import decompress_sharded
 from tudocomp_tpu_torch.utils.vbyte import write_vbyte
 import torch_parallel_ranks as ranks
 
@@ -299,7 +299,7 @@ def test_decompress_sharded_rejects_malformed_frames():
     decodes (every rank parses the whole container and refuses alike)."""
     codec = BlockCodec(device="cpu")
     good = codec.compress(b"\x07")
-    prefix = _prefix(codec, 1, None)
+    prefix = codec._prefix(1, None)
     frame = good[len(prefix):]
     bad = bytearray(prefix)
     write_vbyte(bad, 4096 << 2 | frame[0] & 3)

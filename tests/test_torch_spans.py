@@ -217,6 +217,7 @@ def test_counters_agree_with_the_container(algo, tmp_path):
     flags = BlockCodec(device="cpu")._parse(payload)[4]
     assert asm["stats"]["rle_raw"] == int(((flags >> 1) & 1).sum())
     assert asm["stats"]["huff_raw"] == int((flags & 1).sum())
+    assert asm["stats"]["on_device"] == 0  # the numpy twin on the CPU
     if algo == "tbc2":
         assert asm["stats"]["rle_raw"] > 0 and asm["stats"]["huff_raw"] > 0
     for up in _named(log, "tbc2.upload") + _named(log, "tbc2.download"):

@@ -51,7 +51,7 @@ def test_each_download_span_contains_its_device_to_host_copies(cuda,
                  if e.get("cat") == "user_annotation"
                  and e["name"] == "tbc2.download"]
     log = [r for r in StatPhase.recorded() if r["name"] == "tbc2.download"]
-    assert len(downloads) == len(log) == 2  # encode's and decode's
+    assert len(downloads) == len(log) == 2  # the frames' and decode's
     calls = {e["args"]["correlation"]: interval(e) for e in events
              if e.get("cat") == "cuda_runtime"
              and "correlation" in e.get("args", {})}
@@ -65,3 +65,29 @@ def test_each_download_span_contains_its_device_to_host_copies(cuda,
         for c0, c1 in issued:
             assert a <= c0 and c1 <= b, (a, b, c0, c1)
         assert rec["stats"]["bytes"] > 0 and rec["stats"]["pinned"] == 0
+
+
+def test_assemble_builds_the_frames_on_the_card(cuda):
+    """On CUDA ``tbc2.assemble`` counts ``on_device`` 1, and its one
+    ``tbc2.download`` brings the frame bytes alone: the container less
+    its prefix. ``tbc2.encode`` downloads nothing."""
+    from tudocomp_tpu_torch import BlockCodec
+    from tudocomp_tpu_torch.stats import StatPhase
+
+    rng = np.random.default_rng(17)
+    data = rng.choice(np.frombuffer(b"abcdefgh  \n", np.uint8),
+                      3 << 20).tobytes()
+    codec = BlockCodec(device=cuda, batch_lanes=512)
+    codec.compress(data)
+    with torch.profiler.profile(
+            activities=[torch.profiler.ProfilerActivity.CPU]):
+        container = codec.compress(data)
+    log = StatPhase.recorded()
+    (asm,) = [r for r in log if r["name"] == "tbc2.assemble"]
+    assert asm["stats"]["on_device"] == 1
+    assert asm["stats"]["bytes_out"] == len(container)
+    (down,) = [r for r in log if r["name"] == "tbc2.download"]
+    assert down["parent"] == asm["id"]
+    prefix = codec._prefix(len(data), codec.encode(data).table)
+    assert down["stats"]["bytes"] == len(container) - len(prefix)
+    assert down["stats"]["pinned"] == 0

@@ -83,6 +83,8 @@ _SIGNATURES = {
     "tdc_probe_floor": [_P, _P, _P, _I, _I, _I, _I, _P],
     # rows, words_out, bits_out, nc, strategy, stride, stream
     "tdc_probe_place": [_P, _P, _P, _I, _I, _I, _P],
+    # words, meta1, pbytes, offs (i64), out, nc, stream
+    "tdc_frame_pack": [_P, _P, _P, _P, _P, _I, _P],
 }
 
 #: host entry points (``csrc/host/*.cpp``): name -> argtypes; each

@@ -14,7 +14,9 @@ segment:
 - ``huff_stage``: Huffman pack and the ``huff_raw`` escape (coding
   would not shrink: keep the stream bytes) in one kernel (K2's select
   entry);
-- the host assembles the container (numpy, as in the reference).
+- the frames: on CUDA, K8 (``ops/frames.py``) writes every segment's
+  frame at its scanned offset on the card, and only the frames come to
+  the host; on the CPU, numpy places them (as the JAX package does).
 
 Decode parses the frames with the port's host library
 (``native.py``) and decodes every segment in one launch of K4
@@ -34,15 +36,16 @@ from tudocomp_tpu_torch import native
 from tudocomp_tpu_torch.coders.huffman import HuffmanTable
 from tudocomp_tpu_torch.device import resolve_device
 from tudocomp_tpu_torch.io.bitio import BitReader, BitWriter
+from tudocomp_tpu_torch.ops.frames import (
+    frame_layout, frames_host, pack_batches,
+)
 from tudocomp_tpu_torch.ops.hist import histogram_rows
 from tudocomp_tpu_torch.ops.hufdec import SEG, decode_segments, decoder_tables
 from tudocomp_tpu_torch.ops.segpack import (
     huffman_select_segments, rle_select_segments,
 )
 from tudocomp_tpu_torch.stats import StatPhase
-from tudocomp_tpu_torch.utils.vbyte import (
-    encode_vbyte_array, read_vbyte, write_vbyte,
-)
+from tudocomp_tpu_torch.utils.vbyte import read_vbyte, write_vbyte
 
 MAGIC = b"TBC2"
 
@@ -161,73 +164,118 @@ class BlockCodec:
         start, stop = -lo % 8, min(hi, HIST_SEGS) - lo
         return slice(start, stop, 8) if stop > start else None
 
+    def _stages(self, data: bytes, phase):
+        """The device stages over ``data``, inside the caller's
+        ``tbc2.encode`` phase. Returns ``(hist, table, batches)``: the
+        sampled histogram (host), the table, and per batch its ``(counts,
+        rle_raw, huff_raw, words, bits)`` on the device."""
+        dev = self.device
+        with StatPhase("tbc2.split"):
+            seg_rows, seg_lens = self.split_segments(data)
+        nseg = seg_rows.shape[0]
+        phase.log_stat("bytes_in", len(data))
+        phase.log_stat("segments", nseg)
+        sampled = self.sample_rule(nseg)
+        hist = torch.zeros(256, dtype=torch.int64, device=dev)
+        stage1 = []
+        for lo in range(0, nseg, self.batch_lanes):
+            hi = min(lo + self.batch_lanes, nseg)
+            with StatPhase("tbc2.upload") as up:
+                up.log_copy(seg_rows[lo:hi], seg_lens[lo:hi])
+                batch = (_upload(seg_rows[lo:hi], dev),
+                         _upload(seg_lens[lo:hi], dev))
+            with StatPhase("tbc2.rle"):
+                stage1.append(rle_stage(
+                    *batch, offset=self.offset,
+                    hist_rows=self._hist_rows(lo, hi, sampled), hist=hist,
+                )[:3])
+            # free the batch's input before the next one is uploaded
+            del batch
+        with StatPhase("tbc2.table"):
+            hist_np = hist.cpu().numpy()
+            table = self._table_from_hist(hist_np, sampled)
+            t = device_tables(table, dev)
+        batches = []
+        for i, (sel, counts, rle_raw) in enumerate(stage1):
+            with StatPhase("tbc2.huff"):
+                words, bits, huff_raw = huff_stage(sel, counts, t["sym_code"],
+                                                   t["sym_len"])
+            # K2 has read the batch's stream words: free them
+            stage1[i] = None
+            batches.append((counts, rle_raw, huff_raw, words, bits))
+        return hist_np, table, batches
+
     def encode(self, data: bytes) -> Encoded:
         """Run the device stages over ``data`` and bring their results
         to the host."""
         if not data:
             raise ValueError("encode needs a non-empty input")
-        dev = self.device
         with StatPhase("tbc2.encode") as phase:
-            with StatPhase("tbc2.split"):
-                seg_rows, seg_lens = self.split_segments(data)
-            nseg = seg_rows.shape[0]
-            phase.log_stat("bytes_in", len(data))
-            phase.log_stat("segments", nseg)
-            sampled = self.sample_rule(nseg)
-            hist = torch.zeros(256, dtype=torch.int64, device=dev)
-            stage1 = []
-            for lo in range(0, nseg, self.batch_lanes):
-                hi = min(lo + self.batch_lanes, nseg)
-                with StatPhase("tbc2.upload") as up:
-                    up.log_copy(seg_rows[lo:hi], seg_lens[lo:hi])
-                    batch = (_upload(seg_rows[lo:hi], dev),
-                             _upload(seg_lens[lo:hi], dev))
-                with StatPhase("tbc2.rle"):
-                    sel, counts, rle_raw, _ = rle_stage(
-                        *batch, offset=self.offset,
-                        hist_rows=self._hist_rows(lo, hi, sampled),
-                        hist=hist,
-                    )
-                # free the batch's input before the next one is uploaded
-                del batch
-                stage1.append((sel, counts, rle_raw))
-            with StatPhase("tbc2.table"):
-                hist_np = hist.cpu().numpy()
-                table = self._table_from_hist(hist_np, sampled)
-                t = device_tables(table, dev)
-            stage2 = []
-            for sel, counts, _ in stage1:
-                with StatPhase("tbc2.huff"):
-                    stage2.append(huff_stage(sel, counts, t["sym_code"],
-                                             t["sym_len"]))
-            _, counts, rle_raw = zip(*stage1)
-            words, bits, huff_raw = zip(*stage2)
+            hist, table, batches = self._stages(data, phase)
             with StatPhase("tbc2.download") as down:
-                host = [torch.cat(p).cpu()
-                        for p in (counts, rle_raw, huff_raw, words, bits)]
+                host = [torch.cat(p).cpu() for p in zip(*batches)]
                 down.log_copy(*host)
             counts, rle_raw, huff_raw, words, bits = (h.numpy() for h in host)
         self.timings = {"encode": phase.seconds}
         return Encoded(
-            orig_len=len(data), hist=hist_np, table=table, counts=counts,
+            orig_len=len(data), hist=hist, table=table, counts=counts,
             rle_raw=rle_raw, huff_raw=huff_raw, words=words.view(np.uint32),
             bits=bits,
         )
 
     def compress(self, data: bytes) -> bytes:
+        """The container of ``data``. On CUDA the frames are built on the
+        card (K8) and only they are downloaded; on the CPU the stages'
+        results come to the host and numpy places them."""
         if len(data) == 0:
             return self._assemble_empty()
-        e = self.encode(data)
+        on_device = self.device.type == "cuda"
+        if on_device:
+            with StatPhase("tbc2.encode") as enc:
+                _, table, batches = self._stages(data, enc)
+            self.timings = {"encode": enc.seconds}
+        else:
+            e = self.encode(data)
         with StatPhase("tbc2.assemble") as phase:
-            out = self._assemble(e.orig_len, e.table, e.counts, e.rle_raw,
-                                 e.huff_raw, e.words, e.bits)
+            if on_device:
+                out, nseg, n_rle_raw, n_huff_raw = self._assemble_on_card(
+                    len(data), table, batches)
+            else:
+                out = self._assemble(e.orig_len, e.table, e.counts,
+                                     e.rle_raw, e.huff_raw, e.words, e.bits)
+                nseg = e.counts.shape[0]
+                n_rle_raw, n_huff_raw = e.rle_raw.sum(), e.huff_raw.sum()
             phase.log_stat("bytes_in", len(data))
             phase.log_stat("bytes_out", len(out))
-            phase.log_stat("segments", e.counts.shape[0])
-            phase.log_stat("rle_raw", int(e.rle_raw.sum()))
-            phase.log_stat("huff_raw", int(e.huff_raw.sum()))
+            phase.log_stat("segments", nseg)
+            phase.log_stat("rle_raw", int(n_rle_raw))
+            phase.log_stat("huff_raw", int(n_huff_raw))
+            phase.log_stat("on_device", int(on_device))
         self.timings["assemble"] = phase.seconds
         return out
+
+    def _assemble_on_card(self, orig_len: int, table, batches):
+        """The container from the stages' device results ``batches``:
+        the frames' layout (one small read: their total bytes and the two
+        escape counts), K8 a batch, then one download of the frames into
+        the buffer that holds the prefix. Returns ``(container, segments,
+        rle_raw segments, huff_raw segments)``."""
+        counts, rle_raw, huff_raw, words, bits = zip(*batches)
+        prefix = self._prefix(orig_len, table)
+        with StatPhase("tbc2.scan"):
+            meta1, pbytes, offs, head = frame_layout(
+                *(torch.cat(x) for x in (counts, rle_raw, huff_raw, bits)))
+            total, n_rle_raw, n_huff_raw = head.tolist()
+        with StatPhase("tbc2.pack"):
+            frames = pack_batches(words, meta1, pbytes, offs, total)
+        with StatPhase("tbc2.download") as down:
+            host = torch.empty(len(prefix) + total, dtype=torch.uint8)
+            body = host[len(prefix):]
+            body.copy_(frames)
+            down.log_copy(body)
+        buf = host.numpy()
+        buf[:len(prefix)] = np.frombuffer(prefix, np.uint8)
+        return buf.tobytes(), meta1.shape[0], n_rle_raw, n_huff_raw
 
     def _min_code_len(self) -> int:
         # min 3 keeps the JAX package's lockstep decode schedule valid
@@ -265,70 +313,26 @@ class BlockCodec:
             table.write(head)
         return head.getvalue()
 
-    def _assemble_empty(self) -> bytes:
-        out = bytearray(MAGIC)
-        header = self._header(0, None)
-        write_vbyte(out, len(header))
-        out += header
-        return bytes(out)
-
-    def _assemble(self, orig_len, table, counts, rleraw, hraw, words,
-                  bits) -> bytes:
+    def _prefix(self, orig_len: int, table) -> bytes:
+        """``MAGIC + vbyte(len(header)) + header``: the container up to
+        its frames."""
         out = bytearray(MAGIC)
         header = self._header(orig_len, table)
         write_vbyte(out, len(header))
         out += header
-        out += self._frames(counts, rleraw, hraw, words, bits)
         return bytes(out)
 
-    @staticmethod
-    def _frames(counts, rleraw, hraw, words, bits) -> bytes:
-        """Per-segment frames: vbyte(count << 2 | rle_raw << 1 |
-        huff_raw), vbyte(payload bytes), payload. Vectorised."""
-        nseg = counts.shape[0]
-        meta1 = (
-            (counts.astype(np.uint64) << np.uint64(2))
-            | (rleraw.astype(np.uint64) << np.uint64(1))
-            | hraw.astype(np.uint64)
-        )
-        pbytes = (bits.astype(np.int64) + 7) // 8
-        meta2 = pbytes.astype(np.uint64)
+    def _assemble_empty(self) -> bytes:
+        return self._prefix(0, None)
 
-        def vb_lens(v):
-            nb = np.ones(v.shape, np.int64)
-            vv = v.copy()
-            for _ in range(9):
-                vv >>= np.uint64(7)
-                nb += (vv > 0).astype(np.int64)
-            return nb
+    def _assemble(self, orig_len, table, counts, rleraw, hraw, words,
+                  bits) -> bytes:
+        return self._prefix(orig_len, table) + self._frames(
+            counts, rleraw, hraw, words, bits)
 
-        m1_payload = encode_vbyte_array(meta1)
-        m2_payload = encode_vbyte_array(meta2)
-        l1 = vb_lens(meta1)
-        l2 = vb_lens(meta2)
-        seg_sizes = l1 + l2 + pbytes
-        seg_starts = np.concatenate([[0], np.cumsum(seg_sizes)[:-1]])
-        buf = np.zeros(int(seg_sizes.sum()), np.uint8)
-
-        def ragged_place(dst_starts, lens, src, src_starts):
-            """buf[dst_starts[i] + j] = src[src_starts[i] + j]."""
-            tot = int(lens.sum())
-            if tot == 0:
-                return
-            piece = np.repeat(np.arange(lens.size), lens)
-            within = np.arange(tot) - np.repeat(np.cumsum(lens) - lens, lens)
-            buf[dst_starts[piece] + within] = src[src_starts[piece] + within]
-
-        ragged_place(seg_starts, l1, m1_payload, np.cumsum(l1) - l1)
-        ragged_place(seg_starts + l1, l2, m2_payload, np.cumsum(l2) - l2)
-        payload = np.ascontiguousarray(
-            words, dtype=">u4"
-        ).view(np.uint8).reshape(nseg, -1)
-        ragged_place(
-            seg_starts + l1 + l2, pbytes, payload.reshape(-1),
-            np.arange(nseg, dtype=np.int64) * payload.shape[1],
-        )
-        return buf.tobytes()
+    #: the frames of host arrays (numpy): the CPU route, and the one the
+    #: sharded callers in ``parallel/`` take
+    _frames = staticmethod(frames_host)
 
     # -- decode --------------------------------------------------------------
 

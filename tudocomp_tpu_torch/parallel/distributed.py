@@ -20,7 +20,7 @@ import torch.distributed as dist
 from tudocomp_tpu_torch.models.blockcodec import SEG, _upload, device_tables
 from tudocomp_tpu_torch.parallel.mesh import Mesh
 from tudocomp_tpu_torch.parallel.pipeline import (
-    _prefix, sharded_huff_stage, sharded_rle_stage,
+    sharded_huff_stage, sharded_rle_stage,
 )
 
 #: how long a collective waits for the other ranks before it raises
@@ -96,4 +96,4 @@ def compress_distributed(codec, mesh: Mesh, local_rows: np.ndarray,
                                                 hr[:take],
                                                 w[:take].view(np.uint32),
                                                 b[:take])))
-    return _prefix(codec, orig_len, table), pieces
+    return codec._prefix(orig_len, table), pieces

@@ -40,24 +40,13 @@ import torch
 
 from tudocomp_tpu_torch.models import blockcodec as bc
 from tudocomp_tpu_torch.models.blockcodec import (
-    BATCH_LANES, MAGIC, BlockCodec, _upload, device_tables, huff_stage,
+    BATCH_LANES, BlockCodec, _upload, device_tables, huff_stage,
     rle_stage,
 )
 from tudocomp_tpu_torch.ops.hufdec import SEG, decode_segments
 from tudocomp_tpu_torch.ops.lzss import _match_exact_device, commit_walk
 from tudocomp_tpu_torch.ops.segpack import STREAM_WORDS
 from tudocomp_tpu_torch.parallel.mesh import Mesh
-from tudocomp_tpu_torch.utils.vbyte import write_vbyte
-
-
-def _prefix(codec, orig_len: int, table) -> bytes:
-    """``MAGIC + vbyte(len(header)) + header``: the container before its
-    frames."""
-    header = codec._header(orig_len, table)
-    out = bytearray(MAGIC)
-    write_vbyte(out, len(header))
-    out += header
-    return bytes(out)
 
 
 def shard_segments(mesh: Mesh, data) -> tuple[int, torch.Tensor,
@@ -176,7 +165,7 @@ def compress_sharded(codec, mesh: Mesh, data: bytes) -> bytes | None:
                      "gather": time.perf_counter() - t0}
     if pieces is None:
         return None
-    return _prefix(codec, len(data), table) + b"".join(pieces)
+    return codec._prefix(len(data), table) + b"".join(pieces)
 
 
 def _check_frames(data: bytes, counts, poff, pbytes) -> None:
@@ -376,7 +365,7 @@ def compress_sharded_resumable(codec, mesh: Mesh, src_path: str,
     tables = device_tables(table, mesh.device)
     if writer and data_end is None:
         with open(dst_path, "wb") as f:
-            f.write(_prefix(codec, orig_len, table))
+            f.write(codec._prefix(orig_len, table))
             f.flush()
             os.fsync(f.fileno())
             data_end = f.tell()
