@@ -28,6 +28,12 @@ reference lacks:
 Container: ``TBK1`` magic, vbyte(block_size), then per block
 vbyte(raw_len) vbyte(payload_len) payload. No end marker — EOF ends the
 frame list (a torn frame is detected by a short read).
+
+Each block runs inside one phase, ``blocks.compress_block`` or
+``blocks.decompress_block``, opened on the thread that runs the block,
+with the counters ``index`` (the block's number), ``bytes_in`` and
+``bytes_out``: the raw block and its whole frame on compress, the frame
+and the raw block on decompress.
 """
 
 from __future__ import annotations
@@ -46,9 +52,10 @@ MAGIC = b"TBK1"
 DEFAULT_BLOCK = 1 << 24
 
 
-def _read_vbyte_stream(f) -> int | None:
-    """Read one vbyte from a binary stream; None on clean EOF at a
-    frame boundary; raises on EOF inside the number."""
+def _read_vbyte_stream(f, seen: bytearray | None = None) -> int | None:
+    """Read one vbyte from a binary stream (appending its bytes to
+    ``seen``, where given); None on clean EOF at a frame boundary; raises
+    on EOF inside the number."""
     value, i = 0, 0
     while True:
         b = f.read(1)
@@ -56,6 +63,8 @@ def _read_vbyte_stream(f) -> int | None:
             if i == 0:
                 return None
             raise EOFError("torn vbyte in block container")
+        if seen is not None:
+            seen += b
         byte = b[0]
         value |= (byte & 0x7F) << (7 * i)
         i += 1
@@ -99,13 +108,34 @@ class BlocksCompressor(Compressor):
             restr = comp.env.cls.meta().restrictions
         return comp, restr
 
-    def _compress_block(self, raw: bytes) -> bytes:
-        comp, restr = self._inner()
-        return comp.compress(escape(raw, restr))
+    def _compress_block(self, index: int, raw: bytes) -> tuple[bytes, bytes]:
+        """Block ``index``'s frame: its head (the two vbyte lengths) and
+        its payload."""
+        with StatPhase("blocks.compress_block") as phase:
+            comp, restr = self._inner()
+            payload = comp.compress(escape(raw, restr))
+            head = bytearray()
+            write_vbyte(head, len(raw))
+            write_vbyte(head, len(payload))
+            phase.log_stat("index", index)
+            phase.log_stat("bytes_in", len(raw))
+            phase.log_stat("bytes_out", len(head) + len(payload))
+        return bytes(head), payload
 
-    def _decompress_block(self, payload: bytes) -> bytes:
-        comp, restr = self._inner()
-        return unescape(comp.decompress(payload), restr)
+    def _decompress_block(self, index: int, raw_len: int, payload: bytes,
+                          frame_bytes: int) -> bytes:
+        with StatPhase("blocks.decompress_block") as phase:
+            comp, restr = self._inner()
+            raw = unescape(comp.decompress(payload), restr)
+            phase.log_stat("index", index)
+            phase.log_stat("bytes_in", frame_bytes)
+            phase.log_stat("bytes_out", len(raw))
+        if len(raw) != raw_len:
+            raise ValueError(
+                f"blocks: frame {index} decoded {len(raw)} bytes, "
+                f"expected {raw_len}"
+            )
+        return raw
 
     # -- whole-buffer API ----------------------------------------------------
 
@@ -155,8 +185,8 @@ class BlocksCompressor(Compressor):
         if workers > 1:
             # bounded pipeline: <= workers+1 blocks in flight, frames
             # written in order (the parallel section is one phase: the
-            # phases a worker thread opens are roots on that thread and
-            # stay out of this tree)
+            # blocks' phases open on the worker threads, are roots there
+            # and stay out of this tree)
             from collections import deque
             from concurrent.futures import ThreadPoolExecutor
 
@@ -170,18 +200,13 @@ class BlocksCompressor(Compressor):
                         if not raw:
                             eof = True
                             break
-                        pending.append(
-                            (len(raw),
-                             ex.submit(self._compress_block, raw))
-                        )
+                        pending.append(ex.submit(
+                            self._compress_block,
+                            done + written + len(pending), raw))
                     if not pending:
                         break
-                    raw_len, fut = pending.popleft()
-                    payload = fut.result()
-                    frame = bytearray()
-                    write_vbyte(frame, raw_len)
-                    write_vbyte(frame, len(payload))
-                    dst.write(bytes(frame))
+                    head, payload = pending.popleft().result()
+                    dst.write(head)
                     dst.write(payload)
                     dst.flush()  # frame boundary = restart point
                     written += 1
@@ -190,12 +215,8 @@ class BlocksCompressor(Compressor):
             raw = src.read(bs)
             if not raw:
                 break
-            with StatPhase(f"block {done + written}"):
-                payload = self._compress_block(raw)
-            frame = bytearray()
-            write_vbyte(frame, len(raw))
-            write_vbyte(frame, len(payload))
-            dst.write(bytes(frame))
+            head, payload = self._compress_block(done + written, raw)
+            dst.write(head)
             dst.write(payload)
             dst.flush()  # frame boundary = restart point
             written += 1
@@ -212,16 +233,17 @@ class BlocksCompressor(Compressor):
 
         def frames():
             while True:
-                raw_len = _read_vbyte_stream(src)
+                head = bytearray()
+                raw_len = _read_vbyte_stream(src, head)
                 if raw_len is None:
                     return
-                payload_len = _read_vbyte_stream(src)
+                payload_len = _read_vbyte_stream(src, head)
                 if payload_len is None:
                     raise EOFError("torn frame in block container")
                 payload = src.read(payload_len)
                 if len(payload) != payload_len:
                     raise EOFError("torn frame in block container")
-                yield raw_len, payload
+                yield raw_len, payload, len(head) + payload_len
 
         if workers > 1:
             from collections import deque
@@ -238,31 +260,16 @@ class BlocksCompressor(Compressor):
                         if got is None:
                             eof = True
                             break
-                        pending.append(
-                            (got[0],
-                             ex.submit(self._decompress_block, got[1]))
-                        )
+                        pending.append(ex.submit(
+                            self._decompress_block, n + len(pending),
+                            *got))
                     if not pending:
                         break
-                    raw_len, fut = pending.popleft()
-                    raw = fut.result()
-                    if len(raw) != raw_len:
-                        raise ValueError(
-                            f"blocks: frame {n} decoded {len(raw)} "
-                            f"bytes, expected {raw_len}"
-                        )
-                    dst.write(raw)
+                    dst.write(pending.popleft().result())
                     n += 1
             return n
-        for raw_len, payload in frames():
-            with StatPhase(f"block {n}"):
-                raw = self._decompress_block(payload)
-            if len(raw) != raw_len:
-                raise ValueError(
-                    f"blocks: frame {n} decoded {len(raw)} bytes, "
-                    f"expected {raw_len}"
-                )
-            dst.write(raw)
+        for frame in frames():
+            dst.write(self._decompress_block(n, *frame))
             n += 1
         return n
 
