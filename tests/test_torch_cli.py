@@ -23,12 +23,17 @@ import torch
 
 import __graft_entry__
 from tudocomp_tpu import cli as jax_cli
+from tudocomp_tpu.io import restrictions as jax_restrictions
+from tudocomp_tpu.meta import InputRestrictions as JaxRestrictions
 from tudocomp_tpu.models.blockcodec import BlockCodec as JaxCodec
 from tudocomp_tpu.registry import REGISTRY as JAX_REGISTRY
 from tudocomp_tpu.stats import StatPhase as JaxStatPhase
 from tudocomp_tpu_torch import BlockCodec
 from tudocomp_tpu_torch import cli
 from tudocomp_tpu_torch.entry import entry
+from tudocomp_tpu_torch.io.restrictions import (
+    build_escape_map, escape, unescape)
+from tudocomp_tpu_torch.meta import InputRestrictions
 from tudocomp_tpu_torch.registry import REGISTRY
 from tudocomp_tpu_torch.stats import StatPhase
 
@@ -158,6 +163,73 @@ def test_device_bwt_then_tbc2_equals_host_bwt_then_tbc2():
     assert payload_dev == payload_host
     assert cli.decompress(dev, device=CPU) == data
     assert jax_cli.decompress(dev) == data
+
+
+def _escape_cases():
+    dna = np.random.default_rng(1).choice(
+        np.frombuffer(b"ACGTN", np.uint8), 5000).tobytes()
+    noise = np.random.default_rng(2).integers(0, 256, 8192,
+                                              np.uint8).tobytes()
+    sentinel = ((), True)
+    return {
+        "none": (b"ab\x00c\xff", ((), False)),
+        "none_empty": (b"", ((), False)),
+        "sentinel_clean": (dna, sentinel),
+        "sentinel_dirty": (b"\x00a\xffb\x00\x00\xfe" + dna, sentinel),
+        "sentinel_empty": (b"", sentinel),
+        "lz78u": (noise, ((0,), True)),
+        "lz78u_clean": (dna, ((0,), True)),
+        "set_with_255": (noise, ((255, 254, 192), False)),
+        "set_with_255_clean": (dna, ((255, 254), False)),
+        "runs_of_E": (b"\xff\xffa\xff\xff\xff\x00b\xff\xff", sentinel),
+        "E_before_sentinel": (dna + b"\xff", sentinel),
+        "E_alone": (b"\xff", sentinel),
+    }
+
+
+ESCAPE_CASES = _escape_cases()
+
+
+@pytest.mark.parametrize("kind", ["bytes", "bytearray", "memoryview"])
+@pytest.mark.parametrize("name", list(ESCAPE_CASES))
+def test_escape_matches_jax_and_counts(name, kind):
+    """``escape``/``unescape`` give the JAX package's bytes and the
+    input back; ``front.escape`` counts the restricted bytes found and
+    ``front.unescape`` the pairs it resolved (0 on the clean inputs,
+    whose output is the input, plus the sentinel)."""
+    data, (esc_bytes, null) = ESCAPE_CASES[name]
+    restr = InputRestrictions(esc_bytes, null)
+    given = {"bytes": bytes, "bytearray": bytearray,
+             "memoryview": memoryview}[kind](data)
+    with StatPhase("case") as root:
+        out = escape(given, restr)
+        back = unescape(out, restr)
+    want = jax_restrictions.escape(data, JaxRestrictions(esc_bytes, null))
+    assert type(out) is bytes and out == want
+    assert back == data
+    assert jax_restrictions.unescape(
+        out, JaxRestrictions(esc_bytes, null)) == data
+    em = build_escape_map(restr)
+    found = 0 if em is None else sum(data.count(bytes((b,))) for b in em[0])
+    if name.endswith(("clean", "empty")) or name == "none":
+        assert found == 0
+        assert out == data + b"\x00" * null
+    if kind == "bytes" and em is None:
+        assert out is data
+    enc, dec = root.children
+    assert enc.stats == {"bytes_in": len(data), "bytes_out": len(out),
+                         "escaped": found}
+    assert dec.stats == {"bytes_in": len(out), "bytes_out": len(data),
+                         "pairs": found}
+
+
+@pytest.mark.parametrize("esc_bytes", [(), (0,)])
+def test_unescape_without_the_sentinel_fails(esc_bytes):
+    for fn, restr in ((unescape, InputRestrictions(esc_bytes, True)),
+                      (jax_restrictions.unescape,
+                       JaxRestrictions(esc_bytes, True))):
+        with pytest.raises(ValueError, match="missing sentinel"):
+            fn(b"ACGT", restr)
 
 
 def _main(argv):

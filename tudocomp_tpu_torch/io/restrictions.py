@@ -55,66 +55,82 @@ def build_escape_map(restrictions: InputRestrictions):
 
 
 def escape(data: bytes, restrictions: InputRestrictions) -> bytes:
-    """Escape restricted bytes; append sentinel if required. Vectorized."""
+    """Escape restricted bytes; append sentinel if required. Vectorized.
+
+    Where no restricted byte occurs (one ``find`` a restricted byte,
+    each stopping at its first hit), the output is the input itself,
+    plus the sentinel, in at most one copy. ``escaped`` counts the
+    restricted bytes found."""
     with StatPhase("front.escape") as phase:
-        out = _escape(data, restrictions)
+        out, escaped = _escape(data, restrictions)
         phase.log_stat("bytes_in", len(data))
         phase.log_stat("bytes_out", len(out))
+        phase.log_stat("escaped", escaped)
     return out
 
 
-def _escape(data: bytes, restrictions: InputRestrictions) -> bytes:
+def _escape(data: bytes, restrictions: InputRestrictions
+            ) -> tuple[bytes, int]:
     em = build_escape_map(restrictions)
+    if not isinstance(data, bytes):
+        data = bytes(data)
+    if em is None:
+        return data, 0
+    esc, repl = em
+    if not any(bytes((e,)) in data for e in esc):
+        return data + b"\x00" * restrictions.null_terminate, 0
     arr = np.frombuffer(data, dtype=np.uint8)
-    if em is not None:
-        esc, repl = em
-        lut = np.arange(256, dtype=np.uint8)
-        flag = np.zeros(256, bool)
-        for e, r in zip(esc, repl):
-            lut[e] = r
-            flag[e] = True
-        is_esc = flag[arr]
-        n_esc = int(is_esc.sum())
-        if n_esc:
-            out = np.empty(arr.size + n_esc, np.uint8)
-            # position of each input byte in the output
-            shift = np.cumsum(is_esc) - is_esc
-            pos = np.arange(arr.size) + shift
-            out[pos] = np.where(is_esc, np.uint8(repl[0]), arr)
-            out[pos[is_esc] + 1] = lut[arr[is_esc]]
-            arr = out
-    out_bytes = arr.tobytes()
+    lut = np.arange(256, dtype=np.uint8)
+    flag = np.zeros(256, bool)
+    for e, r in zip(esc, repl):
+        lut[e] = r
+        flag[e] = True
+    is_esc = flag[arr]
+    n_esc = int(is_esc.sum())
+    out = np.empty(arr.size + n_esc, np.uint8)
+    # position of each input byte in the output
+    shift = np.cumsum(is_esc) - is_esc
+    pos = np.arange(arr.size) + shift
+    out[pos] = np.where(is_esc, np.uint8(repl[0]), arr)
+    out[pos[is_esc] + 1] = lut[arr[is_esc]]
+    out_bytes = out.tobytes()
     if restrictions.null_terminate:
         out_bytes += b"\x00"
-    return out_bytes
+    return out_bytes, n_esc
 
 
 def unescape(data: bytes, restrictions: InputRestrictions) -> bytes:
-    """Inverse of :func:`escape` (strips the sentinel first)."""
+    """Inverse of :func:`escape` (strips the sentinel first).
+
+    Where the escape byte does not occur before the sentinel, the output
+    is the input less its sentinel, in one slice. ``pairs`` counts the
+    escape pairs resolved."""
     with StatPhase("front.unescape") as phase:
-        out = _unescape(data, restrictions)
+        out, pairs = _unescape(data, restrictions)
         phase.log_stat("bytes_in", len(data))
         phase.log_stat("bytes_out", len(out))
+        phase.log_stat("pairs", pairs)
     return out
 
 
-def _unescape(data: bytes, restrictions: InputRestrictions) -> bytes:
+def _unescape(data: bytes, restrictions: InputRestrictions
+              ) -> tuple[bytes, int]:
+    end = len(data)
     if restrictions.null_terminate:
         if not data.endswith(b"\x00"):
             raise ValueError("restricted output missing sentinel")
-        data = data[:-1]
+        end -= 1
     em = build_escape_map(restrictions)
     if em is None:
-        return data
+        return data, 0
     esc, repl = em
-    arr = np.frombuffer(data, dtype=np.uint8).copy()
+    if data.find(bytes((repl[0],)), 0, end) < 0:
+        return data[:end], 0
+    arr = np.frombuffer(data, dtype=np.uint8, count=end).copy()
     back = np.arange(256, dtype=np.uint8)
     for e, r in zip(esc, repl):
         back[r] = e
-    is_escape = arr == np.uint8(repl[0])
-    if not is_escape.any():
-        return data
-    starts = np.flatnonzero(is_escape)
+    starts = np.flatnonzero(arr == np.uint8(repl[0]))
     # Escape pairs never overlap, and a raw E never survives escape()
     # unescaped, so every maximal run of consecutive E's is a chain of
     # (E,E) pairs possibly ending in an (E, r!=E) pair: the true pair
@@ -128,4 +144,4 @@ def _unescape(data: bytes, restrictions: InputRestrictions) -> bytes:
     arr[starts + 1] = back[arr[starts + 1]]
     mask = np.ones(arr.size, bool)
     mask[starts] = False
-    return arr[mask].tobytes()
+    return arr[mask].tobytes(), int(starts.size)
