@@ -9,8 +9,8 @@ It needs one CUDA device and exits non-zero without one. Phases:
 2. each kernel (K1 RLE pack, K1's select entry with the ``rle_raw``
    escape, K3 histogram, K3 on the 1-in-8 sample read in place, K2
    Huffman pack, K2's select entry with the ``huff_raw`` escape, K8
-   frame pack, whose frames must also equal the numpy twin's, K4
-   decode) against its plain torch version on the card, at the shapes
+   frame pack, whose container must also equal ``BlockCodec.compress``'s,
+   K4 decode) against its plain torch version on the card, at the shapes
    of the main path's first 16 MiB batch: exact equality, both times
    (CUDA events, after a warm-up);
 3. the main path at 256 MiB: ``BlockCodec(device=cuda).compress`` of
@@ -80,7 +80,7 @@ It needs one CUDA device and exits non-zero without one. Phases:
    on 8 blocks of 256 KiB equals ``factorize_device`` per block on the
    card, and one block on the CPU; (b) two spawned ranks on the same
    card over ``gloo`` (NCCL refuses two ranks on one card): the same
-   container and round trip, each rank's ``_frames`` time, then
+   container and round trip, each rank's frames time, then
    ``compress_sharded_resumable`` of 64 MiB stopped by
    ``TDC_CRASH_AFTER_BATCH=1`` (rank 0 exits 17) and resumed, equal to
    ``BlockCodec.compress`` of those bytes; (c)
@@ -256,12 +256,9 @@ OPS_PER_ELEM = 8
 def kernels_vs_plain(corpus, dev, check: Checker) -> None:
     """Phase 2: each TBC2 kernel against its plain version at main-path
     shapes (the first 16 MiB batch)."""
-    import numpy as np
     import torch
 
-    from tudocomp_tpu_torch.models.blockcodec import (
-        BlockCodec, device_tables, huff_stage,
-    )
+    from tudocomp_tpu_torch.models.blockcodec import BlockCodec, huff_stage
     from tudocomp_tpu_torch.ops import frames, hist, segpack
 
     codec = BlockCodec(device=dev)
@@ -287,7 +284,7 @@ def kernels_vs_plain(corpus, dev, check: Checker) -> None:
         nbytes=in_bytes + 4 * nseg + 4 * words_and_counts(nseg, 512) + nseg,
         nops=OPS_PER_ELEM * in_bytes,
     )
-    sample = codec._hist_rows(0, nseg, True)  # the 1024 sampled rows
+    sample = codec.hist_rows(0, nseg, True)  # the 1024 sampled rows
     sub, subc = sel[sample].contiguous(), counts[sample].contiguous()
     live = segpack.bytes_from_words(sub, segpack.SEG)[
         torch.arange(segpack.SEG, device=dev)[None, :] < subc[:, None]
@@ -313,8 +310,7 @@ def kernels_vs_plain(corpus, dev, check: Checker) -> None:
         nops=sampled,
         library=lambda: torch.bincount(live, minlength=256),
     )
-    table = codec._table_from_hist(h.cpu().numpy(), True)
-    t = device_tables(table, dev)
+    table, t = codec.table(h, True)
     code, length = t["sym_code"], t["sym_len"]
     stream = int(counts.sum())
     check(
@@ -357,14 +353,10 @@ def kernels_vs_plain(corpus, dev, check: Checker) -> None:
         nbytes=int(pbytes.sum()) + total + 16 * nseg,
         nops=OPS_PER_ELEM * total,
     )
-    container = codec._assemble(
-        len(data), table, counts.cpu().numpy(), rle_raw.cpu().numpy(),
-        huff_raw.cpu().numpy(), out.cpu().numpy().view(np.uint32),
-        bits.cpu().numpy(),
-    )
-    if codec._prefix(len(data), table) + packed.cpu().numpy().tobytes() \
-            != container:
-        raise AssertionError("K8's frames differ from the numpy twin's")
+    container = (codec.prefix(len(data), table)
+                 + packed.cpu().numpy().tobytes())
+    if container != codec.compress(data):
+        raise AssertionError("K8's frames differ from BlockCodec.compress")
     check_decode("decode", codec, container, data, dev, check)
 
 
@@ -379,7 +371,7 @@ def check_decode(name, codec, container: bytes, data: bytes, dev,
     from tudocomp_tpu_torch.models.blockcodec import device_tables
     from tudocomp_tpu_torch.ops import hufdec
 
-    table, offset, orig_len, cnt, flags, poff, pbytes = codec._parse(
+    table, offset, orig_len, cnt, flags, poff, pbytes = codec.parse(
         container)
     t = device_tables(table, dev)
     args = [torch.from_numpy(np.ascontiguousarray(a)).to(dev) for a in (
@@ -430,7 +422,7 @@ def main_path(corpus, dev, check: Checker) -> tuple[dict, bytes]:
         raise AssertionError("host decode of the CUDA container differs")
     t_host = time.perf_counter() - t0
     gb = len(data) / 1e9
-    flags = codec._parse(container)[4]
+    flags = codec.parse(container)[4]
     print(f"main path {len(data) // MIB} MiB: ratio "
           f"{len(container) / len(data):.4f}; segments taking huff_raw "
           f"{float((flags & 1).mean()):.4f}, rle_raw "
@@ -594,9 +586,7 @@ def probe_inputs(corpus, dev) -> dict:
     both forms, their counts, the table of the sampled histogram)."""
     import torch
 
-    from tudocomp_tpu_torch.models.blockcodec import (
-        BlockCodec, device_tables, rle_stage,
-    )
+    from tudocomp_tpu_torch.models.blockcodec import BlockCodec, rle_stage
     from tudocomp_tpu_torch.ops.rle import bytes_from_words
 
     codec = BlockCodec(device=dev)
@@ -605,9 +595,8 @@ def probe_inputs(corpus, dev) -> dict:
     lens = torch.full((nseg,), SEG, dtype=torch.int32, device=dev)
     sampled = codec.sample_rule(nseg)
     words, counts, _, hist = rle_stage(
-        rows, lens, offset=0, hist_rows=codec._hist_rows(0, nseg, sampled))
-    t = device_tables(codec._table_from_hist(hist.cpu().numpy(), sampled),
-                      dev)
+        rows, lens, offset=0, hist_rows=codec.hist_rows(0, nseg, sampled))
+    t = codec.table(hist, sampled)[1]
     return {"rows": rows, "words": words,
             "stream": bytes_from_words(words, SEG).contiguous(),
             "counts": counts, "code": t["sym_code"], "length": t["sym_len"]}

@@ -80,7 +80,7 @@ def decode_case(codec, data: bytes, dev):
     from tudocomp_tpu_torch.ops.hufdec import decode_segments
 
     container = codec.compress(data)
-    table, offset, orig_len, cnt, flags, poff, pbytes = codec._parse(
+    table, offset, orig_len, cnt, flags, poff, pbytes = codec.parse(
         container)
     t = device_tables(table, dev)
     args = [torch.from_numpy(np.ascontiguousarray(a)).to(dev) for a in (
@@ -173,9 +173,7 @@ def main() -> int:
     import tudocomp_tpu_torch
     from bench import make_corpus
     from tudocomp_tpu_torch import BlockCodec, _build
-    from tudocomp_tpu_torch.models.blockcodec import (
-        device_tables, huff_stage, rle_stage,
-    )
+    from tudocomp_tpu_torch.models.blockcodec import huff_stage, rle_stage
     from tudocomp_tpu_torch.ops.hist import histogram_words
     from tudocomp_tpu_torch.ops.segpack import (
         huffman_pack_segments, rle_pack_segments,
@@ -222,7 +220,7 @@ def main() -> int:
     res["histogram_bound_ms"] = bound_ms(live + 4 * subc.numel() + 4 * 256)
     res["rle_stage_hist_ms"] = time_ms(
         lambda: rle_stage(rows, lens, offset=0, hist_rows=sample), 20)
-    t = device_tables(codec._table_from_hist(hist.cpu().numpy(), True), dev)
+    t = codec.table(hist, True)[1]
     code, length = t["sym_code"], t["sym_len"]
     stream = int(counts.sum())
     # live stream bytes, counts and the table in; 512 words and the bits

@@ -123,7 +123,7 @@ def stage_traces(which, codec, corpus, dev) -> None:
     import torch
 
     from tudocomp_tpu_torch.models.blockcodec import (
-        BATCH_LANES, device_tables, huff_stage, rle_stage,
+        BATCH_LANES, huff_stage, rle_stage,
     )
     from tudocomp_tpu_torch.ops.hist import histogram_words
     from tudocomp_tpu_torch.ops.segpack import rle_pack_segments
@@ -159,8 +159,7 @@ def stage_traces(which, codec, corpus, dev) -> None:
                          seg_lens[lo:lo + BATCH_LANES], offset=0,
                          hist_rows=sample if lo == 0 else None)
                for lo in range(0, rows.shape[0], BATCH_LANES)]
-    t = device_tables(codec._table_from_hist(batches[0][3].cpu().numpy(),
-                                             True), dev)
+    t = codec.table(batches[0][3], True)[1]
 
     def stage2():
         for sel, counts, _, _ in batches:

@@ -3,6 +3,7 @@ JAX package and the card tests against the CPU. Imports nothing of JAX.
 """
 
 import numpy as np
+import torch
 
 SEG = 2048
 
@@ -52,3 +53,22 @@ FRAME_CASES = {
     "random": (np.random.default_rng(5).integers(
         0, 256, 7 * SEG + 1000, dtype=np.uint8).tobytes(), {}),
 }
+
+
+def stage_results(codec, data: bytes):
+    """``codec``'s public stages over ``data`` up to the frames: ``(hist,
+    table, batches)``, the histogram on the host (before the sampled +1),
+    the table, and :meth:`huff`'s batches on the codec's device."""
+    rows, lens = codec.split_segments(data)
+    sampled = codec.sample_rule(rows.shape[0])
+    stage1, hist = codec.rle(rows, lens, sampled=sampled)
+    table, tables = codec.table(hist, sampled)
+    return hist.cpu().numpy(), table, codec.huff(stage1, tables)
+
+
+def host_columns(batches) -> tuple:
+    """The batches' ``(counts, rle_raw, huff_raw, words u32, bits)``,
+    each joined over the batches, as host arrays."""
+    counts, rle_raw, huff_raw, words, bits = (
+        torch.cat(col).cpu().numpy() for col in zip(*batches))
+    return counts, rle_raw, huff_raw, words.view(np.uint32), bits

@@ -26,7 +26,7 @@ from tudocomp_tpu_torch import native as port_native
 from tudocomp_tpu_torch.coders.huffman import HuffmanTable as PortTable
 from tudocomp_tpu_torch.io.bitio import BitReader as PortReader
 from tudocomp_tpu_torch.io.bitio import BitWriter as PortWriter
-from tbc2_cases import CASES, mixed as _mixed
+from tbc2_cases import CASES, host_columns, mixed as _mixed, stage_results
 
 SEG = 2048
 CPU = torch.device("cpu")
@@ -69,9 +69,10 @@ def test_jax_device_decoder_reads_port_container(port_containers):
 
 def test_mixed_case_takes_both_escapes():
     data, _ = CASES["mixed_5seg"]
-    enc = BlockCodec(device=CPU).encode(data)
-    assert enc.rle_raw.any() and enc.huff_raw.any()
-    assert (~enc.rle_raw & ~enc.huff_raw).any()
+    batches = stage_results(BlockCodec(device=CPU), data)[2]
+    _, rle_raw, huff_raw, _, _ = host_columns(batches)
+    assert rle_raw.any() and huff_raw.any()
+    assert (~rle_raw & ~huff_raw).any()
 
 
 def _hist_spec(data: bytes, segs) -> np.ndarray:
@@ -91,11 +92,11 @@ def test_hist_cap_straddles_batches(monkeypatch):
     monkeypatch.setattr(port_blockcodec, "HIST_SEGS", 12)
     data = _mixed(64, seed=3)
     batched = BlockCodec(device=CPU, batch_lanes=8)
-    enc = batched.encode(data)
+    hist, table, _ = stage_results(batched, data)
     spec = _hist_spec(data, range(0, 12, 8))
-    assert enc.hist.tolist() == spec.tolist()
-    table = HuffmanTable.from_counts(spec + 1, max_len=16, min_len=3)
-    assert enc.table.sym_len.tolist() == table.sym_len.tolist()
+    assert hist.tolist() == spec.tolist()
+    want = HuffmanTable.from_counts(spec + 1, max_len=16, min_len=3)
+    assert table.sym_len.tolist() == want.sym_len.tolist()
     single = BlockCodec(device=CPU).compress(data)
     assert batched.compress(data) == single
     odd = BlockCodec(device=CPU, batch_lanes=5).compress(data)
@@ -182,7 +183,7 @@ def test_host_decoder_matches_jax_native(name, jax_containers):
     native runtime's frames and bytes on the JAX package's containers."""
     container = jax_containers[name]
     codec = BlockCodec(device=CPU)
-    table, offset, orig_len, *frames = codec._parse(container)
+    table, offset, orig_len, *frames = codec.parse(container)
     for got, want in zip(frames, jax_native.tbc2_parse(
             container, _frames_start(container), len(frames[0]))):
         assert got.tolist() == want.tolist()

@@ -21,7 +21,7 @@ from tudocomp_tpu_torch.ops.bitpack_chunks import (
     rle_pack_chunks_plain,
 )
 from tudocomp_tpu_torch.ops.frames import (
-    frame_layout, frames_host, pack_frames, pack_frames_plain,
+    frame_layout, pack_batches, pack_frames, pack_frames_plain,
 )
 from tudocomp_tpu_torch.ops.hist import (
     histogram_rows, histogram_rows_plain, histogram_words,
@@ -41,7 +41,7 @@ from tudocomp_tpu_torch.ops.segpack import (
 from tudocomp_tpu_torch.probes import ablate, floor, place
 from test_torch_container_hardening import flipped, hardening_container
 from test_torch_k2_k3 import BATCHES, NAMES, select_case
-from tbc2_cases import FRAME_CASES
+from tbc2_cases import FRAME_CASES, host_columns, stage_results
 
 pytestmark = pytest.mark.cuda
 
@@ -124,7 +124,7 @@ def test_decode_matches_plain(cuda, offset):
     data = b"".join(r[:n].tobytes() for r, n in zip(rows, lens))
     codec = BlockCodec(device="cpu", offset=offset)
     container = codec.compress(data)
-    table, off, orig_len, counts, flags, poff, pbytes = codec._parse(container)
+    table, off, orig_len, counts, flags, poff, pbytes = codec.parse(container)
     t = device_tables(table, cuda)
     args = _to(cuda, np.frombuffer(container, np.uint8).copy(),
                poff.astype(np.int64), pbytes.astype(np.int64),
@@ -162,8 +162,8 @@ def test_codec_cuda_empty_and_tiny(cuda):
 @pytest.mark.parametrize("name", list(FRAME_CASES))
 def test_frames_on_card_match_the_host_twin(cuda, name, batch_lanes):
     """K8 builds the frames of ``BlockCodec.compress`` on the card: the
-    container equals the CPU codec's, its frames the numpy twin's of the
-    same stage results, with one launch a batch; and K8 alone, at
+    container equals the CPU codec's, its frames the plain version's of
+    the same stage results, with one launch a batch; and K8 alone, at
     offsets that start at every residue mod 16 in a dirty buffer, writes
     the plain version's bytes and no others."""
     data, opts = FRAME_CASES[name]
@@ -174,15 +174,18 @@ def test_frames_on_card_match_the_host_twin(cuda, name, batch_lanes):
     nseg = -(-len(data) // SEG)
     assert launch_counts()["frame_pack"] == -(-nseg // batch_lanes)
     assert container == BlockCodec(device="cpu", **opts).compress(data)
-    e = gpu.encode(data)
-    host = (e.counts, e.rle_raw, e.huff_raw, e.words, e.bits)
-    assert container == gpu._prefix(len(data), e.table) + frames_host(*host)
+    _, table, batches = stage_results(gpu, data)
+    host = host_columns(batches)
+    counts, rle_raw, huff_raw, bits = _to("cpu", *host[:3], host[4])
+    plain = frame_layout(counts, rle_raw, huff_raw, bits)
+    body = pack_batches([b[3].cpu() for b in batches], *plain[:3],
+                        int(plain[3][0]))
+    assert container == gpu.prefix(len(data), table) + body.numpy().tobytes()
 
-    counts, rle_raw, huff_raw, bits = _to(cuda, e.counts, e.rle_raw,
-                                          e.huff_raw, e.bits)
+    counts, rle_raw, huff_raw, bits = _to(cuda, *host[:3], host[4])
     meta1, pbytes, offs, head = frame_layout(counts, rle_raw, huff_raw,
                                              bits)
-    (words,) = _to(cuda, e.words.view(np.int32))
+    (words,) = _to(cuda, host[3].view(np.int32))
     total = int(head[0])
     for shift in range(16):
         out = torch.full((total + 48,), 0xAB, dtype=torch.uint8,
@@ -507,7 +510,7 @@ def test_rle_select_is_rle_stage_on_the_card(cuda):
 def _decode_args(dev, container: bytes, codec, shift: int = 0):
     """K4's inputs for ``container`` placed ``shift`` bytes into the
     flat array (every payload moves by ``shift`` mod 16)."""
-    table, off, orig_len, counts, flags, poff, pbytes = codec._parse(
+    table, off, orig_len, counts, flags, poff, pbytes = codec.parse(
         container)
     flat = np.concatenate([np.full(shift, 0xEE, np.uint8),
                            np.frombuffer(container, np.uint8)])
@@ -533,7 +536,7 @@ def test_decode_every_payload_offset_mod_16(cuda, offset):
     data = b"".join(r[:n].tobytes() for r, n in zip(rows, lens))[:-333]
     codec = BlockCodec(device="cpu", offset=offset)
     container = codec.compress(data)
-    flags = codec._parse(container)[4]
+    flags = codec.parse(container)[4]
     assert {0, 1, 2, 3} <= set(flags.tolist())  # both escapes, alone and
     for shift in range(16):                     # together
         args, fast, off, n = _decode_args(cuda, container, codec, shift)
@@ -647,7 +650,7 @@ def test_decode_warps_of_rle_raw_segments(cuda, alphabet):
     data = rng.integers(0, alphabet, 70 * SEG - 100, dtype=np.uint8).tobytes()
     codec = BlockCodec(device="cpu")
     container = codec.compress(data)
-    flags = codec._parse(container)[4]
+    flags = codec.parse(container)[4]
     assert (flags == (3 if alphabet == 256 else 2)).all()
     for shift in (0, 5):
         args, fast, off, n = _decode_args(cuda, container, codec, shift)
@@ -727,7 +730,7 @@ def test_histogram_rows_matches_plain(cuda, lo, hi, aligned):
         np.int32), lens)
     if not aligned:
         words = _unaligned(words, 8)
-    picked = BlockCodec._hist_rows(lo, hi, True)
+    picked = BlockCodec.hist_rows(lo, hi, True)
     out = torch.full((256,), 3, dtype=torch.int64, device=cuda)
     assert histogram_rows(words, lens_t, picked, out) is out
     assert torch.equal(out - 3, histogram_rows_plain(words, lens_t, picked))

@@ -153,7 +153,7 @@ BATCHES = [(0, 70), (8181, 8230), (8100, 8200)]
 @pytest.mark.parametrize("lo,hi", BATCHES)
 def test_strided_histogram_matches_gathered_rows(lo, hi):
     rows_np, words_np, lens_np = _stream_words(lo, hi - lo)
-    rows = BlockCodec._hist_rows(lo, hi, True)
+    rows = BlockCodec.hist_rows(lo, hi, True)
     assert rows.step == 8 and (lo + rows.start) % 8 == 0
     assert lo + rows.stop <= blockcodec.HIST_SEGS
     words, lens = torch.from_numpy(words_np), torch.from_numpy(lens_np)

@@ -27,10 +27,7 @@ from tudocomp_tpu_torch.entry import dryrun_multichip
 from tudocomp_tpu_torch.models import blockcodec as bc
 from tudocomp_tpu_torch.models.blockcodec import BlockCodec
 from tudocomp_tpu_torch.ops.lzss import factorize_device
-from tudocomp_tpu_torch.parallel import (
-    compress_sharded, make_mesh, sharded_huff_stage, sharded_rle_stage,
-)
-from tudocomp_tpu_torch.parallel.distributed import gather_frames_host_local
+from tudocomp_tpu_torch.parallel import compress_sharded, make_mesh
 from tudocomp_tpu_torch.parallel.launch import run_ranks
 from tudocomp_tpu_torch.parallel.pipeline import decompress_sharded
 from tudocomp_tpu_torch.utils.vbyte import write_vbyte
@@ -198,19 +195,61 @@ def test_cuda_is_the_default_device(call):
 
 def test_sharded_stages_accept_an_empty_range():
     """A rank with no segments runs no kernel, adds nothing to the
-    histogram and frames nothing."""
+    histogram, frames nothing and decodes nothing."""
     mesh = make_mesh(1, device="cpu")
-    rows = torch.zeros(0, 2048, dtype=torch.uint8)
-    lens = torch.zeros(0, dtype=torch.int32)
-    sel, counts, raw, hist = sharded_rle_stage(mesh, rows, lens, offset=0,
-                                               sample=True, global_base=8)
-    assert sel.shape == (0, 512) and counts.shape == raw.shape == (0,)
+    codec = BlockCodec(device="cpu")
+    rows, lens = codec.split_segments(b"")
+    stage1, hist = codec.rle(rows, lens, first=8, sampled=True)
+    assert stage1 == [] and hist.shape == (256,)
+    mesh.all_reduce(hist)
     assert int(hist.abs().sum()) == 0
-    code = torch.arange(256, dtype=torch.int32)
-    words, bits, hraw = sharded_huff_stage(mesh, sel, counts, code,
-                                           torch.full_like(code, 8))
-    assert words.shape == (0, 512) and bits.shape == hraw.shape == (0,)
-    assert gather_frames_host_local(counts, 8) == []
+    table, tables = codec.table(hist, True)
+    assert codec.huff(stage1, tables) == []
+    assert codec.frames([]) == b""
+    assert codec.frames([], b"TBC2") == b"TBC2"
+    none = np.zeros(0, np.int64)
+    assert codec.decode(b"", none, none, none, none, table, offset=0,
+                        orig_len=0) == b""
+
+
+def _private_codec_uses(path: str) -> list:
+    """Lines of ``path`` that name a ``_``-prefixed member of
+    ``BlockCodec``: an attribute that the class defines, any such
+    attribute of a name ``codec`` or ``BlockCodec``, or an import of a
+    ``_``-prefixed name from the codec's module."""
+    import ast
+
+    private = {n for n in vars(BlockCodec)
+               if n.startswith("_") and not n.startswith("__")}
+    with open(path) as f:
+        tree = ast.parse(f.read())
+    bad = []
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Attribute) and node.attr.startswith("_") \
+                and not node.attr.startswith("__"):
+            owner = getattr(node.value, "id", None)
+            if node.attr in private or owner in ("codec", "BlockCodec"):
+                bad.append((node.lineno, node.attr))
+        elif isinstance(node, ast.ImportFrom) and (
+                node.module or "").endswith("blockcodec"):
+            bad += [(node.lineno, a.name) for a in node.names
+                    if a.name.startswith("_")]
+    return bad
+
+
+@pytest.mark.parametrize("path", [
+    "tudocomp_tpu_torch/parallel/pipeline.py",
+    "tudocomp_tpu_torch/parallel/distributed.py",
+    "tudocomp_tpu_torch/parallel/mesh.py",
+    "tudocomp_tpu_torch/parallel/launch.py",
+    "tudocomp_tpu_torch/entry.py",
+    "chip_smoke.py",
+])
+def test_callers_use_only_the_codecs_public_stages(path):
+    """``parallel/``, its entry and the card's smoke run call the codec
+    through its public stages alone, so the codec's rules live in
+    ``models/blockcodec.py`` only."""
+    assert _private_codec_uses(os.path.join(ROOT, path)) == []
 
 
 def test_world_1_without_a_group_equals_one_device(one_device):
@@ -299,7 +338,7 @@ def test_decompress_sharded_rejects_malformed_frames():
     decodes (every rank parses the whole container and refuses alike)."""
     codec = BlockCodec(device="cpu")
     good = codec.compress(b"\x07")
-    prefix = codec._prefix(1, None)
+    prefix = codec.prefix(1, None)
     frame = good[len(prefix):]
     bad = bytearray(prefix)
     write_vbyte(bad, 4096 << 2 | frame[0] & 3)

@@ -88,6 +88,6 @@ def test_assemble_builds_the_frames_on_the_card(cuda):
     assert asm["stats"]["bytes_out"] == len(container)
     (down,) = [r for r in log if r["name"] == "tbc2.download"]
     assert down["parent"] == asm["id"]
-    prefix = codec._prefix(len(data), codec.encode(data).table)
+    prefix = codec.prefix(len(data), codec.parse(container)[0])
     assert down["stats"]["bytes"] == len(container) - len(prefix)
     assert down["stats"]["pinned"] == 0

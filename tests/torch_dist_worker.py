@@ -41,7 +41,7 @@ rows = np.pad(rows, ((0, per * nproc - rows.shape[0]), (0, 0)))
 lens = np.pad(lens, (0, per * nproc - lens.shape[0]))
 local = slice(pid * per, (pid + 1) * per)
 
-_, _, first = distributed.global_block_batch(mesh, rows[local], lens[local])
+first = pid * per
 prefix, pieces = distributed.compress_distributed(
     codec, mesh, rows[local], lens[local], len(data))
 with open(os.path.join(outdir, f"first{pid}.txt"), "w") as f:

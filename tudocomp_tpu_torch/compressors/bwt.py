@@ -24,7 +24,7 @@ import torch
 
 from tudocomp_tpu_torch import debug, native
 from tudocomp_tpu_torch.compressors.base import Compressor
-from tudocomp_tpu_torch.device import resolve_device
+from tudocomp_tpu_torch.device import download, resolve_device, upload
 from tudocomp_tpu_torch.ds.bwt import bwt_forward, compute_lf
 from tudocomp_tpu_torch.ds.suffix import suffix_array
 from tudocomp_tpu_torch.meta import Meta
@@ -63,18 +63,13 @@ class BWTCompressor(Compressor):
         if dev is None:
             return bwt_forward(t, suffix_array(t)).tobytes()
         with StatPhase("bwt.forward") as phase:
-            host = torch.from_numpy(t.copy())
-            with StatPhase("bwt.upload") as up:
-                up.log_copy(host)
-                td = host.to(dev)
+            (td,) = upload("bwt.upload", t.copy(), device=dev)
             info = {}
             with StatPhase("bwt.sa"):
                 sa = suffix_array_device(td, info)
             with StatPhase("bwt.isa_bwt"):
                 bw = bwt_device(td, isa_device(sa))
-            with StatPhase("bwt.download") as down:
-                bw = bw.cpu()
-                down.log_copy(bw)
+            (bw,) = download("bwt.download", bw)
             phase.log_stat("bytes_in", len(data))
             phase.log_stat("rounds", info["rounds"])
             return bw.numpy().tobytes()
@@ -87,16 +82,11 @@ class BWTCompressor(Compressor):
         if debug.PARANOID:  # mirror the host path's LF invariant
             debug.check_lf(compute_lf(arr), arr)
         with StatPhase("bwt.inverse") as phase:
-            host = torch.from_numpy(arr.copy())
-            with StatPhase("bwt.upload") as up:
-                up.log_copy(host)
-                bw = host.to(dev)
+            (bw,) = upload("bwt.upload", arr.copy(), device=dev)
             info = {}
             with StatPhase("bwt.unbwt"):
                 out = unbwt_device(bw, info)
-            with StatPhase("bwt.download") as down:
-                out = out.cpu()
-                down.log_copy(out)
+            (out,) = download("bwt.download", out)
             out = out.numpy().tobytes() + b"\x00"
             phase.log_stat("bytes_out", len(out))
             phase.log_stat("rounds", info["rounds"])

@@ -1,12 +1,12 @@
 // K8: frame pack, the body of a TBC2 container built on the card.
 //
 // Replaces no TPU kernel: the JAX package assembles the frames on the
-// host (tudocomp_tpu/models/blockcodec.py:_frames, numpy), and so did
-// the port before K8 (ops/frames.py:frames_host keeps that code as the
-// CPU twin). Frame c is vbyte(meta1[c]), vbyte(pbytes[c]) and the first
-// pbytes[c] bytes of row c of the big-endian stream words that K2 leaves
-// (words u32[nc, 512]), written at byte offs[c] of out; the caller has
-// scanned the frame sizes, so frames abut. The batch's rows are read
+// host (tudocomp_tpu/models/blockcodec.py, numpy); the port's CPU
+// tensors take this kernel's plain version (ops/frames.py:
+// pack_frames_plain). Frame c is vbyte(meta1[c]), vbyte(pbytes[c]) and
+// the first pbytes[c] bytes of row c of the big-endian stream words that
+// K2 leaves (words u32[nc, 512]), written at byte offs[c] of out; the
+// caller has scanned the frame sizes, so frames abut. The batch's rows are read
 // where they lie.
 //
 // A pure data-movement kernel: its floor is the payload bytes read once

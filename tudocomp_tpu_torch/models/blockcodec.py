@@ -14,9 +14,9 @@ segment:
 - ``huff_stage``: Huffman pack and the ``huff_raw`` escape (coding
   would not shrink: keep the stream bytes) in one kernel (K2's select
   entry);
-- the frames: on CUDA, K8 (``ops/frames.py``) writes every segment's
-  frame at its scanned offset on the card, and only the frames come to
-  the host; on the CPU, numpy places them (as the JAX package does).
+- the frames: K8 (``ops/frames.py``; its plain torch version on the
+  CPU) writes every segment's frame at its scanned offset on the
+  device, and only the frames come to the host.
 
 Decode parses the frames with the port's host library
 (``native.py``) and decodes every segment in one launch of K4
@@ -27,18 +27,15 @@ The container bytes do not depend on ``batch_lanes``.
 from __future__ import annotations
 
 import os
-from dataclasses import dataclass
 
 import numpy as np
 import torch
 
 from tudocomp_tpu_torch import native
 from tudocomp_tpu_torch.coders.huffman import HuffmanTable
-from tudocomp_tpu_torch.device import resolve_device
+from tudocomp_tpu_torch.device import download, resolve_device, upload
 from tudocomp_tpu_torch.io.bitio import BitReader, BitWriter
-from tudocomp_tpu_torch.ops.frames import (
-    frame_layout, frames_host, pack_batches,
-)
+from tudocomp_tpu_torch.ops.frames import frame_layout, pack_batches
 from tudocomp_tpu_torch.ops.hist import histogram_rows
 from tudocomp_tpu_torch.ops.hufdec import SEG, decode_segments, decoder_tables
 from tudocomp_tpu_torch.ops.segpack import (
@@ -101,30 +98,15 @@ def huff_stage(sel_words, counts, sym_code, sym_len):
     return huffman_select_segments(sel_words, counts, sym_code, sym_len)
 
 
-@dataclass
-class Encoded:
-    """Device-stage results of one input, on the host: what the
-    container is assembled from."""
-
-    orig_len: int
-    hist: np.ndarray       # i64[256] sampled table histogram (before +1)
-    table: HuffmanTable | None
-    counts: np.ndarray     # i32[nseg] stream bytes per segment
-    rle_raw: np.ndarray    # bool[nseg]
-    huff_raw: np.ndarray   # bool[nseg]
-    words: np.ndarray      # u32[nseg, 512] payload words
-    bits: np.ndarray       # i32[nseg] payload bits
-
-
-def _upload(arr: np.ndarray, device) -> torch.Tensor:
-    return torch.from_numpy(np.ascontiguousarray(arr)).to(device)
-
-
 class BlockCodec:
-    """Host orchestration: split -> device encode -> container assembly,
-    and parse -> device decode. ``device`` defaults to CUDA, which runs
-    the kernels and raises where CUDA is absent; ``device="cpu"`` runs
-    their plain versions."""
+    """The codec, in stages that every caller runs: ``compress`` is
+    split -> :meth:`rle` -> :meth:`table` -> :meth:`huff` ->
+    :meth:`frames` on one device, and ``parallel/`` runs the same stages
+    on each rank's range of segments, with the histogram summed over the
+    mesh between ``rle`` and ``table``. Decode is :meth:`parse` ->
+    :meth:`decode`. ``device`` defaults to CUDA, which runs the kernels
+    and raises where CUDA is absent; ``device="cpu"`` runs their plain
+    versions."""
 
     def __init__(self, *, device="cuda", offset: int = 0,
                  batch_lanes: int = BATCH_LANES,
@@ -156,126 +138,119 @@ class BlockCodec:
         return nseg >= 64
 
     @staticmethod
-    def _hist_rows(lo: int, hi: int, sampled: bool) -> slice | None:
-        """Rows of batch ``[lo, hi)`` that feed the histogram: all of
-        them, or (sampled) the global segments ``[0:HIST_SEGS:8]``."""
+    def hist_rows(lo: int, hi: int, sampled: bool) -> slice | None:
+        """Rows of the global segments ``[lo, hi)`` that feed the
+        histogram: all of them, or (sampled) the global segments
+        ``[0:HIST_SEGS:8]``; ``None`` where none does."""
         if not sampled:
             return slice(0, hi - lo)
         start, stop = -lo % 8, min(hi, HIST_SEGS) - lo
         return slice(start, stop, 8) if stop > start else None
 
-    def _stages(self, data: bytes, phase):
-        """The device stages over ``data``, inside the caller's
-        ``tbc2.encode`` phase. Returns ``(hist, table, batches)``: the
-        sampled histogram (host), the table, and per batch its ``(counts,
-        rle_raw, huff_raw, words, bits)`` on the device."""
-        dev = self.device
-        with StatPhase("tbc2.split"):
-            seg_rows, seg_lens = self.split_segments(data)
-        nseg = seg_rows.shape[0]
-        phase.log_stat("bytes_in", len(data))
-        phase.log_stat("segments", nseg)
-        sampled = self.sample_rule(nseg)
-        hist = torch.zeros(256, dtype=torch.int64, device=dev)
+    def rle(self, rows, lens, *, first: int = 0, sampled: bool,
+            hist: bool = True):
+        """Stage 1 on the host segments ``rows u8[n, SEG]``, ``lens
+        i32[n]`` (global segment ``first`` first, split as
+        :meth:`split_segments` splits): each batch of ``batch_lanes``
+        segments uploaded, then K1's select entry with K3 adding the rows
+        :meth:`hist_rows` picks by global index. Returns ``(stage1,
+        hist)``: per batch its ``(sel, counts, rle_raw)`` on the device,
+        and the i64[256] histogram on the device (``None`` with
+        ``hist=False``: no histogram work)."""
+        acc = (torch.zeros(256, dtype=torch.int64, device=self.device)
+               if hist else None)
         stage1 = []
-        for lo in range(0, nseg, self.batch_lanes):
-            hi = min(lo + self.batch_lanes, nseg)
-            with StatPhase("tbc2.upload") as up:
-                up.log_copy(seg_rows[lo:hi], seg_lens[lo:hi])
-                batch = (_upload(seg_rows[lo:hi], dev),
-                         _upload(seg_lens[lo:hi], dev))
+        for lo in range(0, rows.shape[0], self.batch_lanes):
+            hi = min(lo + self.batch_lanes, rows.shape[0])
+            batch = upload("tbc2.upload", rows[lo:hi], lens[lo:hi],
+                           device=self.device)
+            picked = (self.hist_rows(first + lo, first + hi, sampled)
+                      if hist else None)
             with StatPhase("tbc2.rle"):
-                stage1.append(rle_stage(
-                    *batch, offset=self.offset,
-                    hist_rows=self._hist_rows(lo, hi, sampled), hist=hist,
-                )[:3])
+                stage1.append(rle_stage(*batch, offset=self.offset,
+                                        hist_rows=picked, hist=acc)[:3])
             # free the batch's input before the next one is uploaded
             del batch
+        return stage1, acc
+
+    def table(self, hist, sampled: bool):
+        """The canonical table of the (summed) histogram ``hist``, a
+        tensor or a host array: ``(table, tables)``, the
+        ``HuffmanTable`` (``None``: one symbol or none) and its
+        :func:`device_tables`."""
         with StatPhase("tbc2.table"):
-            hist_np = hist.cpu().numpy()
-            table = self._table_from_hist(hist_np, sampled)
-            t = device_tables(table, dev)
+            if isinstance(hist, torch.Tensor):
+                hist = hist.cpu().numpy()
+            hist = np.asarray(hist, np.int64)
+            if sampled:
+                hist = hist + 1  # sampled histogram: keep all bytes encodable
+            table = None
+            if (hist > 0).sum() > 1:
+                table = HuffmanTable.from_counts(
+                    hist, max_len=16, min_len=self._min_code_len())
+            return table, device_tables(table, self.device)
+
+    def huff(self, stage1: list, tables: dict) -> list:
+        """Stage 2 on each batch of :meth:`rle`'s ``stage1`` under
+        ``tables``: K2's select entry, each batch's stream words freed
+        once K2 has read them. Returns per batch its ``(counts, rle_raw,
+        huff_raw, words, bits)`` on the device."""
         batches = []
         for i, (sel, counts, rle_raw) in enumerate(stage1):
             with StatPhase("tbc2.huff"):
-                words, bits, huff_raw = huff_stage(sel, counts, t["sym_code"],
-                                                   t["sym_len"])
-            # K2 has read the batch's stream words: free them
+                words, bits, huff_raw = huff_stage(
+                    sel, counts, tables["sym_code"], tables["sym_len"])
             stage1[i] = None
             batches.append((counts, rle_raw, huff_raw, words, bits))
-        return hist_np, table, batches
+        return batches
 
-    def encode(self, data: bytes) -> Encoded:
-        """Run the device stages over ``data`` and bring their results
-        to the host."""
-        if not data:
-            raise ValueError("encode needs a non-empty input")
-        with StatPhase("tbc2.encode") as phase:
-            hist, table, batches = self._stages(data, phase)
-            with StatPhase("tbc2.download") as down:
-                host = [torch.cat(p).cpu() for p in zip(*batches)]
-                down.log_copy(*host)
-            counts, rle_raw, huff_raw, words, bits = (h.numpy() for h in host)
-        self.timings = {"encode": phase.seconds}
-        return Encoded(
-            orig_len=len(data), hist=hist, table=table, counts=counts,
-            rle_raw=rle_raw, huff_raw=huff_raw, words=words.view(np.uint32),
-            bits=bits,
-        )
-
-    def compress(self, data: bytes) -> bytes:
-        """The container of ``data``. On CUDA the frames are built on the
-        card (K8) and only they are downloaded; on the CPU the stages'
-        results come to the host and numpy places them."""
-        if len(data) == 0:
-            return self._assemble_empty()
-        on_device = self.device.type == "cuda"
-        if on_device:
-            with StatPhase("tbc2.encode") as enc:
-                _, table, batches = self._stages(data, enc)
-            self.timings = {"encode": enc.seconds}
-        else:
-            e = self.encode(data)
-        with StatPhase("tbc2.assemble") as phase:
-            if on_device:
-                out, nseg, n_rle_raw, n_huff_raw = self._assemble_on_card(
-                    len(data), table, batches)
-            else:
-                out = self._assemble(e.orig_len, e.table, e.counts,
-                                     e.rle_raw, e.huff_raw, e.words, e.bits)
-                nseg = e.counts.shape[0]
-                n_rle_raw, n_huff_raw = e.rle_raw.sum(), e.huff_raw.sum()
-            phase.log_stat("bytes_in", len(data))
-            phase.log_stat("bytes_out", len(out))
-            phase.log_stat("segments", nseg)
-            phase.log_stat("rle_raw", int(n_rle_raw))
-            phase.log_stat("huff_raw", int(n_huff_raw))
-            phase.log_stat("on_device", int(on_device))
-        self.timings["assemble"] = phase.seconds
-        return out
-
-    def _assemble_on_card(self, orig_len: int, table, batches):
-        """The container from the stages' device results ``batches``:
-        the frames' layout (one small read: their total bytes and the two
-        escape counts), K8 a batch, then one download of the frames into
-        the buffer that holds the prefix. Returns ``(container, segments,
-        rle_raw segments, huff_raw segments)``."""
+    def frames(self, batches: list, prefix: bytes = b"") -> bytes:
+        """``prefix`` followed by the frames of :meth:`huff`'s
+        ``batches``: the frames' layout on the device (one small read:
+        their total bytes and the two escape counts), K8 a batch (its
+        plain version on the CPU), then one download of the frames into
+        the buffer that holds ``prefix``. Logs ``segments``, ``rle_raw``,
+        ``huff_raw`` and ``on_device`` into the caller's open phase."""
+        if not batches:
+            return bytes(prefix)
         counts, rle_raw, huff_raw, words, bits = zip(*batches)
-        prefix = self._prefix(orig_len, table)
         with StatPhase("tbc2.scan"):
             meta1, pbytes, offs, head = frame_layout(
                 *(torch.cat(x) for x in (counts, rle_raw, huff_raw, bits)))
             total, n_rle_raw, n_huff_raw = head.tolist()
         with StatPhase("tbc2.pack"):
-            frames = pack_batches(words, meta1, pbytes, offs, total)
-        with StatPhase("tbc2.download") as down:
-            host = torch.empty(len(prefix) + total, dtype=torch.uint8)
-            body = host[len(prefix):]
-            body.copy_(frames)
-            down.log_copy(body)
+            body = pack_batches(words, meta1, pbytes, offs, total)
+        (host,) = download("tbc2.download", body, head=len(prefix))
         buf = host.numpy()
         buf[:len(prefix)] = np.frombuffer(prefix, np.uint8)
-        return buf.tobytes(), meta1.shape[0], n_rle_raw, n_huff_raw
+        StatPhase.log("segments", meta1.shape[0])
+        StatPhase.log("rle_raw", n_rle_raw)
+        StatPhase.log("huff_raw", n_huff_raw)
+        StatPhase.log("on_device", int(self.device.type == "cuda"))
+        return buf.tobytes()
+
+    def compress(self, data: bytes) -> bytes:
+        """The container of ``data``: the frames are built on the
+        codec's device and only they are downloaded."""
+        if len(data) == 0:
+            return self.prefix(0, None)
+        with StatPhase("tbc2.encode") as enc:
+            with StatPhase("tbc2.split"):
+                rows, lens = self.split_segments(data)
+            enc.log_stat("bytes_in", len(data))
+            enc.log_stat("segments", rows.shape[0])
+            sampled = self.sample_rule(rows.shape[0])
+            stage1, hist = self.rle(rows, lens, sampled=sampled)
+            del rows, lens
+            table, tables = self.table(hist, sampled)
+            batches = self.huff(stage1, tables)
+        self.timings = {"encode": enc.seconds}
+        with StatPhase("tbc2.assemble") as phase:
+            out = self.frames(batches, self.prefix(len(data), table))
+            phase.log_stat("bytes_in", len(data))
+            phase.log_stat("bytes_out", len(out))
+        self.timings["assemble"] = phase.seconds
+        return out
 
     def _min_code_len(self) -> int:
         # min 3 keeps the JAX package's lockstep decode schedule valid
@@ -291,16 +266,6 @@ class BlockCodec:
             mn = 3
         return min(max(mn, 3), 8)
 
-    def _table_from_hist(self, hist, sampled: bool):
-        hist = np.asarray(hist, np.int64)
-        if sampled:
-            hist = hist + 1  # sampled histogram: keep all bytes encodable
-        if (hist > 0).sum() <= 1:
-            return None
-        return HuffmanTable.from_counts(
-            hist, max_len=16, min_len=self._min_code_len()
-        )
-
     def _header(self, orig_len: int, table) -> bytes:
         head = BitWriter()
         head.write_compressed_int(SEG)
@@ -313,30 +278,20 @@ class BlockCodec:
             table.write(head)
         return head.getvalue()
 
-    def _prefix(self, orig_len: int, table) -> bytes:
+    def prefix(self, orig_len: int, table) -> bytes:
         """``MAGIC + vbyte(len(header)) + header``: the container up to
-        its frames."""
+        its frames (the whole container of an empty input)."""
         out = bytearray(MAGIC)
         header = self._header(orig_len, table)
         write_vbyte(out, len(header))
         out += header
         return bytes(out)
 
-    def _assemble_empty(self) -> bytes:
-        return self._prefix(0, None)
-
-    def _assemble(self, orig_len, table, counts, rleraw, hraw, words,
-                  bits) -> bytes:
-        return self._prefix(orig_len, table) + self._frames(
-            counts, rleraw, hraw, words, bits)
-
-    #: the frames of host arrays (numpy): the CPU route, and the one the
-    #: sharded callers in ``parallel/`` take
-    _frames = staticmethod(frames_host)
-
     # -- decode --------------------------------------------------------------
 
-    def _parse(self, data: bytes):
+    def parse(self, data: bytes):
+        """The container's header and frames: ``(table, offset,
+        orig_len, counts, flags, poff, pbytes)``, one row a segment."""
         with StatPhase("tbc2.parse") as phase:
             if data[:4] != MAGIC:
                 raise ValueError("bad magic")
@@ -355,10 +310,43 @@ class BlockCodec:
         self.timings = {"parse": phase.seconds}
         return table, offset, orig_len, counts, flags, poff, pbytes
 
+    @staticmethod
+    def check_frames(data: bytes, counts, poff, pbytes) -> None:
+        """Raise on parsed frames K4 must not decode: a count past
+        ``SEG`` or a payload past the container ``data``."""
+        if counts.size and (counts.max() > SEG
+                            or np.any(poff + pbytes > len(data))):
+            raise ValueError("malformed TBC2 frames")
+
+    def decode(self, data: bytes, counts, flags, poff, pbytes, table, *,
+               offset: int, orig_len: int) -> bytes:
+        """K4 on a range of :meth:`parse`'s rows of the container
+        ``data`` (``orig_len``: the range's output bytes), after
+        :meth:`check_frames`. Only the range's payload bytes are
+        uploaded. Returns the decoded bytes (empty for an empty range,
+        without a launch)."""
+        self.check_frames(data, counts, poff, pbytes)
+        if counts.shape[0] == 0:
+            return b""
+        start = int(poff.min())
+        end = int((poff + pbytes).max())
+        t = device_tables(table, self.device)
+        host = (np.frombuffer(data, np.uint8)[start:end].copy(),
+                (poff - start).astype(np.int64), pbytes.astype(np.int64),
+                counts.astype(np.int32), flags.astype(np.uint8))
+        args = upload("tbc2.upload", *host, device=self.device)
+        del host
+        out = decode_segments(
+            *args, t["thresh"], t["offs"], t["symbols"],
+            offset=offset, orig_len=orig_len, fast=t["fast"],
+        )
+        (out,) = download("tbc2.download", out)
+        return out.numpy().tobytes()
+
     def decompress(self, data: bytes) -> bytes:
         """Host decode on CPU cores with the port's host library."""
         (table, offset, orig_len, counts, flags, poff,
-         pbytes) = self._parse(data)
+         pbytes) = self.parse(data)
         if orig_len == 0:
             return b""
         return native.tbc2_decode(data, counts, flags, poff, pbytes,
@@ -367,29 +355,12 @@ class BlockCodec:
     def decompress_device(self, data: bytes) -> bytes:
         """Parse on the host, then decode every segment with K4."""
         (table, offset, orig_len, counts, flags, poff,
-         pbytes) = self._parse(data)
+         pbytes) = self.parse(data)
         if orig_len == 0:
             return b""
         with StatPhase("tbc2.decode") as phase:
-            if counts.max() > SEG or np.any(poff + pbytes > len(data)):
-                raise ValueError("malformed TBC2 frames")
-            dev = self.device
-            t = device_tables(table, dev)
-            host = (np.frombuffer(data, np.uint8).copy(),
-                    poff.astype(np.int64), pbytes.astype(np.int64),
-                    counts.astype(np.int32), flags.astype(np.uint8))
-            with StatPhase("tbc2.upload") as up:
-                up.log_copy(*host)
-                args = [_upload(a, dev) for a in host]
-            del host
-            out = decode_segments(
-                *args, t["thresh"], t["offs"], t["symbols"],
-                offset=offset, orig_len=orig_len, fast=t["fast"],
-            )
-            with StatPhase("tbc2.download") as down:
-                out = out.cpu()
-                down.log_copy(out)
-            out = out.numpy().tobytes()
+            out = self.decode(data, counts, flags, poff, pbytes, table,
+                              offset=offset, orig_len=orig_len)
             phase.log_stat("bytes_out", len(out))
         self.timings["decode"] = phase.seconds
         return out

@@ -5,83 +5,25 @@ count << 2 | rle_raw << 1 | huff_raw`` and ``pbytes = (bits + 7) >> 3``
 the bytes of the segment's payload: the first ``pbytes`` bytes of its
 big-endian stream words, as K2 leaves them (``ops/segpack.py``).
 
-Two routes, chosen by where the arrays are:
-
-- host arrays: :func:`frames_host`, numpy (the JAX package's
-  ``BlockCodec._frames``), for a CPU ``BlockCodec`` and the sharded
-  callers in ``parallel/``;
-- tensors: :func:`frame_layout` gives every frame's fields and its
-  offset (an exclusive scan of the frame sizes over the whole input),
-  then :func:`pack_batches` writes the frames into one ``u8[total]``
-  buffer with :func:`pack_frames`, once per batch of stream words. On
-  CUDA tensors that launches ``csrc/frames.cu``; CPU tensors take its
-  plain torch version.
-
-Both give the same bytes.
+:func:`frame_layout` gives every frame's fields and its offset (an
+exclusive scan of the frame sizes over the whole input), then
+:func:`pack_batches` writes the frames into one ``u8[total]`` buffer
+with :func:`pack_frames`, once per batch of stream words. On CUDA
+tensors that launches ``csrc/frames.cu``; CPU tensors take its plain
+torch version. The bytes equal the frames the JAX package places
+(numpy, on the host).
 """
 
 from __future__ import annotations
 
-import numpy as np
 import torch
 
 from tudocomp_tpu_torch import _build
 from tudocomp_tpu_torch.ops.rle import bytes_from_words
 from tudocomp_tpu_torch.ops.segpack import SEG, STREAM_WORDS
-from tudocomp_tpu_torch.utils.vbyte import encode_vbyte_array
 
 #: bytes of the longest vbyte of a 32-bit value
 VBYTE_MAX = 5
-
-
-def frames_host(counts, rleraw, hraw, words, bits) -> bytes:
-    """The frames of host arrays ``counts i32[n]``, ``rleraw``/``hraw``
-    ``bool[n]``, ``words u32[n, 512]`` and ``bits i32[n]``, placed with
-    numpy index arrays."""
-    nseg = counts.shape[0]
-    meta1 = (
-        (counts.astype(np.uint64) << np.uint64(2))
-        | (rleraw.astype(np.uint64) << np.uint64(1))
-        | hraw.astype(np.uint64)
-    )
-    pbytes = (bits.astype(np.int64) + 7) // 8
-    meta2 = pbytes.astype(np.uint64)
-
-    def vb_lens(v):
-        nb = np.ones(v.shape, np.int64)
-        vv = v.copy()
-        for _ in range(9):
-            vv >>= np.uint64(7)
-            nb += (vv > 0).astype(np.int64)
-        return nb
-
-    m1_payload = encode_vbyte_array(meta1)
-    m2_payload = encode_vbyte_array(meta2)
-    l1 = vb_lens(meta1)
-    l2 = vb_lens(meta2)
-    seg_sizes = l1 + l2 + pbytes
-    seg_starts = np.concatenate([[0], np.cumsum(seg_sizes)[:-1]])
-    buf = np.zeros(int(seg_sizes.sum()), np.uint8)
-
-    def ragged_place(dst_starts, lens, src, src_starts):
-        """buf[dst_starts[i] + j] = src[src_starts[i] + j]."""
-        tot = int(lens.sum())
-        if tot == 0:
-            return
-        piece = np.repeat(np.arange(lens.size), lens)
-        within = np.arange(tot) - np.repeat(np.cumsum(lens) - lens, lens)
-        buf[dst_starts[piece] + within] = src[src_starts[piece] + within]
-
-    ragged_place(seg_starts, l1, m1_payload, np.cumsum(l1) - l1)
-    ragged_place(seg_starts + l1, l2, m2_payload, np.cumsum(l2) - l2)
-    payload = np.ascontiguousarray(
-        words, dtype=">u4"
-    ).view(np.uint8).reshape(nseg, -1)
-    ragged_place(
-        seg_starts + l1 + l2, pbytes, payload.reshape(-1),
-        np.arange(nseg, dtype=np.int64) * payload.shape[1],
-    )
-    return buf.tobytes()
 
 
 def vbyte_sizes(v: torch.Tensor) -> torch.Tensor:

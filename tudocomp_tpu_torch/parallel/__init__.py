@@ -12,6 +12,4 @@ this host (``launch.py``).
 from tudocomp_tpu_torch.parallel.mesh import make_mesh  # noqa: F401
 from tudocomp_tpu_torch.parallel.pipeline import (  # noqa: F401
     compress_sharded,
-    sharded_huff_stage,
-    sharded_rle_stage,
 )
