@@ -3,6 +3,7 @@ takes on every device (the frame layout, then K8's plain version a
 batch) against the JAX package's ``BlockCodec._frames``. Every
 comparison is exact."""
 
+import numpy as np
 import pytest
 import torch
 
@@ -13,7 +14,7 @@ from tudocomp_tpu_torch.ops.frames import (
     _vbyte_bytes, frame_layout, pack_batches, vbyte_sizes,
 )
 from tudocomp_tpu_torch.utils.vbyte import read_vbyte, write_vbyte
-from tbc2_cases import FRAME_CASES, host_columns, stage_results
+from tbc2_cases import FRAME_CASES, SEG, host_columns, mixed, stage_results
 
 
 @pytest.mark.parametrize("batch_lanes", [BATCH_LANES, 5, 8])
@@ -35,6 +36,27 @@ def test_frame_routes_match_the_jax_frames(name, batch_lanes):
     prefix = codec.prefix(len(data), table)
     assert codec.frames(batches, prefix) == prefix + want
     assert codec.compress(data) == prefix + want
+
+
+@pytest.mark.parametrize("nseg, last", [(4, 1), (4, SEG - 1), (515, 1)])
+def test_rle_reads_the_flat_input_as_the_split_rows(nseg, last):
+    """``rle`` fed the flat input (``compress``'s route: a short last
+    segment, padded on the device) gives the stage results of
+    ``split_segments``' zero-padded rows, batch for batch, at
+    ``batch_lanes`` 512 (the last batch shorter: 4 of 512, 3 of 512)."""
+    data = (mixed(8, seed=last) * -(-nseg // 8))[: (nseg - 1) * SEG + last]
+    codec = BlockCodec(device="cpu", batch_lanes=512)
+    rows, lens = codec.split_segments(data)
+    assert np.array_equal(codec.segment_lens(len(data)), lens)
+    sampled = codec.sample_rule(nseg)
+    flat, flat_hist = codec.rle(np.frombuffer(data, np.uint8), lens,
+                                sampled=sampled)
+    split, split_hist = codec.rle(rows, lens, sampled=sampled)
+    assert len(flat) == len(split) == -(-nseg // 512)
+    for got, want in zip(flat, split):
+        for g, w in zip(got, want):
+            assert torch.equal(g, w)
+    assert torch.equal(flat_hist, split_hist)
 
 
 def test_frame_cases_take_one_and_two_byte_fields():

@@ -10,15 +10,17 @@ import json
 import math
 import threading
 import time
+import warnings
 from collections import Counter
 
 import numpy as np
 import pytest
 import torch
 
-from tudocomp_tpu_torch import cli
+from tudocomp_tpu_torch import cli, device
 from tudocomp_tpu_torch.cli import REGISTRY
 from tudocomp_tpu_torch.compressors.bwt import BWTCompressor
+from tudocomp_tpu_torch.device import upload
 from tudocomp_tpu_torch.io.restrictions import escape
 from tudocomp_tpu_torch.models.blockcodec import BlockCodec
 from tudocomp_tpu_torch.ops.hufdec import SEG
@@ -238,6 +240,46 @@ def test_counters_agree_with_the_container(algo, tmp_path):
         (inv,) = _named(log, "bwt.inverse")
         assert inv["stats"]["bytes_out"] == len(text)
         assert inv["stats"]["rounds"] == math.ceil(math.log2(len(text) - 1))
+
+
+@pytest.mark.parametrize("n", [0, 1, 2047, 2049])
+def test_upload_takes_a_read_only_view(n):
+    """``upload`` takes ``np.frombuffer`` views of ``bytes`` (read-only)
+    without torch's non-writable warning, and its tensors equal them;
+    on the CPU the copy logs its bytes and ``pinned`` 0."""
+    data = np.random.default_rng(n).integers(0, 256, n + 8, np.uint8)
+    view = np.frombuffer(data.tobytes(), np.uint8)[3: 3 + n]
+    wide = np.frombuffer(data.tobytes(), np.uint8)[: n // 8 * 8].view(
+        np.int64)
+    assert not view.flags.writeable and not wide.flags.writeable
+    t0 = time.perf_counter()
+    with torch.profiler.profile(activities=CPU):
+        with warnings.catch_warnings():
+            warnings.simplefilter("error")
+            got = upload("tbc2.upload", view, wide, device=torch.device("cpu"))
+    assert [g.numpy().tobytes() for g in got] == [view.tobytes(),
+                                                  wide.tobytes()]
+    assert [g.dtype for g in got] == [torch.uint8, torch.int64]
+    (up,) = _named(_since(t0), "tbc2.upload")
+    assert up["stats"] == {"bytes": n + n // 8 * 8, "pinned": 0}
+
+
+@pytest.mark.parametrize("n", [0, 1, 2049, 10**6 + 3])
+def test_stage_copies_a_read_only_view_whole(n, monkeypatch):
+    """``_stage``, the card's copy into a pinned block (here into plain
+    memory: this torch has no pinned allocator), copies a read-only view
+    of any length and dtype whole into a block of its shape and dtype."""
+    empty = torch.empty
+    monkeypatch.setattr(torch, "empty", lambda *a, pin_memory, **k:
+                        empty(*a, **k))
+    raw = np.random.default_rng(n).integers(0, 256, n + 1, np.uint8)
+    view = np.frombuffer(raw.tobytes(), np.uint8)[1:]
+    assert device._stage(view).numpy().tobytes() == view.tobytes()
+    wide = np.frombuffer(raw[: n // 8 * 8].tobytes(), np.int64)
+    rows = wide[: len(wide) // 4 * 4].reshape(-1, 4)
+    for h in (wide, rows):
+        block = device._stage(h)
+        assert block.dtype == torch.int64 and np.array_equal(block.numpy(), h)
 
 
 def test_no_program_span_is_named_as_a_harness_span(tmp_path):

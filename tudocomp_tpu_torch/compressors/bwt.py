@@ -63,7 +63,7 @@ class BWTCompressor(Compressor):
         if dev is None:
             return bwt_forward(t, suffix_array(t)).tobytes()
         with StatPhase("bwt.forward") as phase:
-            (td,) = upload("bwt.upload", t.copy(), device=dev)
+            (td,) = upload("bwt.upload", t, device=dev)
             info = {}
             with StatPhase("bwt.sa"):
                 sa = suffix_array_device(td, info)
@@ -82,7 +82,7 @@ class BWTCompressor(Compressor):
         if debug.PARANOID:  # mirror the host path's LF invariant
             debug.check_lf(compute_lf(arr), arr)
         with StatPhase("bwt.inverse") as phase:
-            (bw,) = upload("bwt.upload", arr.copy(), device=dev)
+            (bw,) = upload("bwt.upload", arr, device=dev)
             info = {}
             with StatPhase("bwt.unbwt"):
                 out = unbwt_device(bw, info)

@@ -25,29 +25,59 @@ def resolve_device(device) -> torch.device:
     return dev
 
 
+def _torch_dtype(dtype: np.dtype) -> torch.dtype:
+    return torch.from_numpy(np.empty(0, dtype)).dtype
+
+
+def _stage(h: np.ndarray) -> torch.Tensor:
+    """``h`` copied into a page-locked block of torch's caching host
+    allocator, which hands the same mapped pages to the next block of
+    that size once this one is freed. One numpy copy: on the H100's
+    host, threads (started a call) cost more than they save."""
+    block = torch.empty(h.shape, dtype=_torch_dtype(h.dtype),
+                        pin_memory=True)
+    block.numpy()[...] = h
+    return block
+
+
 def upload(phase: str, *host: np.ndarray, device) -> list[torch.Tensor]:
     """Each host array of ``host`` copied to ``device``, inside the phase
-    ``phase``. The arrays must be writable; a contiguous one is not
-    copied on the host."""
+    ``phase``. Read-only views (``np.frombuffer`` of ``bytes``) are
+    fine. On CUDA each array is copied once into a pinned block
+    (:func:`_stage`) and from there to the card; the copy ends before
+    the block is freed. On the CPU a writable contiguous array is not
+    copied; any other is copied once."""
     with StatPhase(phase) as up:
-        up.log_copy(*host)
-        return [torch.from_numpy(np.ascontiguousarray(h)).to(device)
-                for h in host]
+        if device.type != "cuda":
+            host = [np.ascontiguousarray(h) if h.flags.writeable
+                    else h.copy() for h in host]
+            up.log_copy(*host)
+            return [torch.from_numpy(h).to(device) for h in host]
+        staged = [_stage(h) for h in host]
+        up.log_copy(*staged)
+        return [block.to(device) for block in staged]
 
 
 def download(phase: str, *tensors: torch.Tensor,
              head: int = 0) -> list[torch.Tensor]:
-    """Each tensor of ``tensors`` copied to a new host tensor, inside the
+    """Each tensor of ``tensors`` copied to a host tensor, inside the
     phase ``phase``. With ``head``, the one tensor's copy lands ``head``
     elements into a 1-D host tensor that much longer, whose first
-    ``head`` elements the caller fills (a header before a payload)."""
+    ``head`` elements the caller fills (a header before a payload). A
+    CUDA tensor lands in a page-locked block of torch's caching host
+    allocator: the caller copies out what it keeps and lets the tensor
+    go, so the next call of that size reuses the block. A CPU tensor
+    without ``head`` is returned as it is."""
     with StatPhase(phase) as down:
         if not head:
-            host = [t.cpu() for t in tensors]
+            host = [torch.empty(t.shape, dtype=t.dtype,
+                                pin_memory=True).copy_(t) if t.is_cuda
+                    else t for t in tensors]
             down.log_copy(*host)
             return host
         (t,) = tensors
-        host = torch.empty(head + t.numel(), dtype=t.dtype)
+        host = torch.empty(head + t.numel(), dtype=t.dtype,
+                           pin_memory=t.is_cuda)
         body = host[head:]
         body.copy_(t)
         down.log_copy(body)

@@ -123,13 +123,20 @@ class BlockCodec:
     # -- encode --------------------------------------------------------------
 
     @staticmethod
-    def split_segments(data: bytes):
-        n = len(data)
+    def segment_lens(n: int) -> np.ndarray:
+        """``i32[ceil(n / SEG)]``: the byte count of each segment of an
+        ``n``-byte input (``SEG`` but the last)."""
         nseg = -(-n // SEG)
-        arr = np.zeros((nseg, SEG), np.uint8)
-        arr.reshape(-1)[:n] = np.frombuffer(data, np.uint8)
         lens = np.clip(n - SEG * np.arange(nseg, dtype=np.int64), 0, SEG)
-        return arr, lens.astype(np.int32)
+        return lens.astype(np.int32)
+
+    @classmethod
+    def split_segments(cls, data: bytes):
+        n = len(data)
+        lens = cls.segment_lens(n)
+        arr = np.zeros((lens.shape[0], SEG), np.uint8)
+        arr.reshape(-1)[:n] = np.frombuffer(data, np.uint8)
+        return arr, lens
 
     @staticmethod
     def sample_rule(nseg: int) -> bool:
@@ -149,28 +156,38 @@ class BlockCodec:
 
     def rle(self, rows, lens, *, first: int = 0, sampled: bool,
             hist: bool = True):
-        """Stage 1 on the host segments ``rows u8[n, SEG]``, ``lens
-        i32[n]`` (global segment ``first`` first, split as
-        :meth:`split_segments` splits): each batch of ``batch_lanes``
-        segments uploaded, then K1's select entry with K3 adding the rows
-        :meth:`hist_rows` picks by global index. Returns ``(stage1,
+        """Stage 1 on the host segments ``lens i32[n]`` (global segment
+        ``first`` first) whose bytes ``rows`` holds: as rows ``u8[n,
+        SEG]`` split as :meth:`split_segments` splits, or flat, the
+        input itself (``u8[m]``, ``lens`` of :meth:`segment_lens`).
+        Each batch of ``batch_lanes`` segments is uploaded as it lies in
+        ``rows``, the flat input's short last segment padded with zeros
+        on the device, then K1's select entry runs with K3 adding the
+        rows :meth:`hist_rows` picks by global index. Returns ``(stage1,
         hist)``: per batch its ``(sel, counts, rle_raw)`` on the device,
         and the i64[256] histogram on the device (``None`` with
         ``hist=False``: no histogram work)."""
         acc = (torch.zeros(256, dtype=torch.int64, device=self.device)
                if hist else None)
+        flat = rows.reshape(-1)
         stage1 = []
-        for lo in range(0, rows.shape[0], self.batch_lanes):
-            hi = min(lo + self.batch_lanes, rows.shape[0])
-            batch = upload("tbc2.upload", rows[lo:hi], lens[lo:hi],
-                           device=self.device)
+        for lo in range(0, lens.shape[0], self.batch_lanes):
+            hi = min(lo + self.batch_lanes, lens.shape[0])
+            seg_bytes, seg_lens = upload(
+                "tbc2.upload", flat[lo * SEG: hi * SEG], lens[lo:hi],
+                device=self.device)
             picked = (self.hist_rows(first + lo, first + hi, sampled)
                       if hist else None)
             with StatPhase("tbc2.rle"):
-                stage1.append(rle_stage(*batch, offset=self.offset,
+                short = (hi - lo) * SEG - seg_bytes.shape[0]
+                if short:
+                    seg_bytes = torch.nn.functional.pad(seg_bytes,
+                                                        (0, short))
+                stage1.append(rle_stage(seg_bytes.view(hi - lo, SEG),
+                                        seg_lens, offset=self.offset,
                                         hist_rows=picked, hist=acc)[:3])
             # free the batch's input before the next one is uploaded
-            del batch
+            del seg_bytes, seg_lens
         return stage1, acc
 
     def table(self, hist, sampled: bool):
@@ -236,12 +253,13 @@ class BlockCodec:
             return self.prefix(0, None)
         with StatPhase("tbc2.encode") as enc:
             with StatPhase("tbc2.split"):
-                rows, lens = self.split_segments(data)
+                flat = np.frombuffer(data, np.uint8)
+                lens = self.segment_lens(len(data))
             enc.log_stat("bytes_in", len(data))
-            enc.log_stat("segments", rows.shape[0])
-            sampled = self.sample_rule(rows.shape[0])
-            stage1, hist = self.rle(rows, lens, sampled=sampled)
-            del rows, lens
+            enc.log_stat("segments", lens.shape[0])
+            sampled = self.sample_rule(lens.shape[0])
+            stage1, hist = self.rle(flat, lens, sampled=sampled)
+            del flat, lens
             table, tables = self.table(hist, sampled)
             batches = self.huff(stage1, tables)
         self.timings = {"encode": enc.seconds}
@@ -331,7 +349,7 @@ class BlockCodec:
         start = int(poff.min())
         end = int((poff + pbytes).max())
         t = device_tables(table, self.device)
-        host = (np.frombuffer(data, np.uint8)[start:end].copy(),
+        host = (np.frombuffer(data, np.uint8)[start:end],
                 (poff - start).astype(np.int64), pbytes.astype(np.int64),
                 counts.astype(np.int32), flags.astype(np.uint8))
         args = upload("tbc2.upload", *host, device=self.device)
